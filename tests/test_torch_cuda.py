@@ -1,0 +1,137 @@
+"""Card-only tests: each CUDA kernel of the torch port against its plain
+PyTorch version on the same CUDA inputs, at small sizes, and the render
+path on the card against the same path on the CPU.
+
+These skip without a CUDA device. On a machine with a card and without
+JAX run them with ``pytest --noconftest -m cuda tests/test_torch_cuda.py``
+(the repository's ``tests/conftest.py`` configures JAX). This file imports
+neither JAX nor the JAX package.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from video_annotator_tpu_torch import so3
+from video_annotator_tpu_torch.camera import (
+    CameraPreset,
+    get_output_camera,
+    get_preset_camera,
+)
+from video_annotator_tpu_torch.ops import lk_kernel, stage, warp_kernel
+from video_annotator_tpu_torch.ops.warp_plain import scaled_camera
+from video_annotator_tpu_torch.pipeline import render as trender
+from video_annotator_tpu_torch.pipeline.trajectory import Trajectory
+
+pytestmark = pytest.mark.cuda
+
+MIN_EQUAL = 0.999
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def assert_u8_close(got, want):
+    d = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    assert int(d.max()) <= 1
+    assert float((d == 0).float().mean()) >= MIN_EQUAL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("pad_value,slack", [(0, 0), (128, 0), (0, 32)])
+def test_stage_kernel_matches_plain(cuda, dtype, pad_value, slack):
+    g = torch.Generator().manual_seed(0)
+    src = torch.randint(-40, 600, (3, 45, 200), generator=g).to(torch.float32) * 0.5
+    if dtype == torch.uint8:
+        src = src.clamp(0, 255).to(torch.uint8)
+    src = src.to(cuda)
+    got = stage.stage_u8(src, pad_value=pad_value, slack=slack)
+    want = stage.stage_u8_plain(src, pad_value=pad_value, slack=slack)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_warp_kernel_matches_plain(cuda):
+    in_cam = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (320, 240))
+    out_cam = get_output_camera(in_cam, zoom=1.0 / 1.2)
+    oh, ow = out_cam.height // 2 * 2, out_cam.width // 2 * 2
+    g = torch.Generator().manual_seed(1)
+    ys = torch.randint(0, 256, (3, 240, 320), generator=g, dtype=torch.uint8).to(cuda)
+    uv = torch.randint(0, 256, (3, 2, 120, 160), generator=g, dtype=torch.uint8).to(cuda)
+    rots = so3.exp(torch.randn((3, 3), generator=g) * 0.03).to(cuda)
+    for src, oc, ic, size, border in (
+            (ys[:, None], out_cam, in_cam, (oh, ow), 0.0),
+            (uv, scaled_camera(out_cam, 0.5), scaled_camera(in_cam, 0.5),
+             (oh // 2, ow // 2), 128.0)):
+        got = warp_kernel.warp_planes_u8(src, rots, oc, ic, size, border)
+        want = warp_kernel.warp_planes_u8_plain(src, rots, oc, ic, size, border)
+        torch.cuda.synchronize()
+        assert_u8_close(got, want)
+
+
+def shifted_chunk(device, shifts, h=480, w=640):
+    """Frames of a smooth analytic texture shifted by sub-pixel offsets."""
+    y = torch.arange(h, dtype=torch.float64)[:, None]
+    x = torch.arange(w, dtype=torch.float64)[None, :]
+    frames = []
+    for dx, dy in shifts:
+        u, v = x - dx, y - dy
+        img = (128 + 40 * torch.sin(u / 7.3) * torch.cos(v / 5.1)
+               + 30 * torch.sin((u + v) / 11.7) + 20 * torch.cos(u / 3.9 - v / 6.2))
+        frames.append(img)
+    return torch.stack(frames).to(torch.float32).to(device)
+
+
+def test_lk_kernel_matches_plain(cuda):
+    shifts = [(0.0, 0.0), (2.25, -1.5), (4.5, 1.0), (3.0, 4.75)]
+    frames = shifted_chunk(cuda, shifts)
+    g = torch.Generator().manual_seed(2)
+    pts = torch.stack([torch.rand(300, generator=g) * 600 + 20,
+                       torch.rand(300, generator=g) * 440 + 20], dim=-1)
+    pts = torch.cat([pts, torch.tensor([[320.0, 9.0], [5.0, 240.0], [630.0, 470.0]])])
+    m = pts.shape[0]
+    band = torch.arange(3).repeat_interleave(m).to(cuda)
+    p = pts.repeat(3, 1).to(cuda)
+    guess = (torch.randn((3 * m, 2), generator=g) * 0.5).to(cuda)
+    staged = lk_kernel.stage_pyramid_pairs(frames)
+    for level in (0, 1):
+        got = lk_kernel.lk_level_pairs(staged[level], p / 2 ** level, band, guess, 8)
+        want = lk_kernel.lk_level_pairs(staged[level].cpu(), p.cpu() / 2 ** level,
+                                        band.cpu(), guess.cpu(), 8)
+        torch.cuda.synchronize()
+        ok = got[2].cpu() & want[2]
+        assert float((got[2].cpu() == want[2]).float().mean()) >= 0.99
+        assert int(ok.sum()) > 600
+        for a, b in zip(got[:2], want[:2]):
+            assert float((a.cpu() - b)[ok].abs().max()) <= 0.01
+
+
+def test_render_on_card_matches_cpu(cuda, tmp_path):
+    src = "synthetic://shaky?w=640&h=480&n=12&seed=3"
+    opts = dict(stabilise="smooth", analysis_mode="paired",
+                preset=CameraPreset.GOPRO_H4B_WIDE43_MEASURED)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        dest = tmp_path / f"{dev}.y4m"
+        trender.render(src, str(dest), trender.RenderOptions(**opts), device=dev)
+        outs[dev] = (Trajectory.load(str(dest) + ".traj.npz"), dest)
+    rel = so3.matmul(torch.from_numpy(outs["cuda"][0].rotations()),
+                     so3.transpose(torch.from_numpy(outs["cpu"][0].rotations())))
+    assert math.degrees(float(so3.log(rel).norm(dim=-1).max())) <= 0.05
+    from video_annotator_tpu_torch.io.video import open_reader
+
+    frames = [list(open_reader(str(outs[d][1]))) for d in ("cpu", "cuda")]
+    assert len(frames[0]) == len(frames[1]) == 12
+    # Same trajectory on both sides: encode the CPU one on the card too.
+    trender.encode(src, str(tmp_path / "enc.y4m"), outs["cpu"][0],
+                   trender.RenderOptions(**opts), device="cuda")
+    for a, b in zip(frames[0], open_reader(str(tmp_path / "enc.y4m"))):
+        for pa, pb in zip(a, b):
+            assert_u8_close(torch.from_numpy(np.array(pa)), torch.from_numpy(np.array(pb)))

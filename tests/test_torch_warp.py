@@ -1,0 +1,134 @@
+"""The torch port's warp (plain version of kernel K1) against the JAX
+package: the XLA oracle, the CPU ``FrameWarper`` path and the Pallas
+kernel in interpret mode."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from video_annotator_tpu import so3 as jso3
+from video_annotator_tpu.camera import (
+    CameraPreset,
+    get_output_camera,
+    get_preset_camera,
+)
+from video_annotator_tpu.ops.warp_pallas import plan_warp, warp_yuv_batch_pallas
+from video_annotator_tpu.ops.warp_xla import _scaled_camera, warp_image_xla
+from video_annotator_tpu.pipeline.render import FrameWarper as JaxFrameWarper
+from video_annotator_tpu_torch import camera as tcamera
+from video_annotator_tpu_torch.ops import warp_kernel, warp_plain
+from video_annotator_tpu_torch.pipeline.render import FrameWarper
+
+FLOAT_ATOL = 0.05  # the bar tests/test_warp_pallas.py sets for the Pallas kernel
+MIN_EQUAL = 0.999  # uint8 outputs: within 1 count, at least 99.9% equal
+
+
+def to_port(jcam):
+    leaves = {f: np.asarray(getattr(jcam, f)) for f in ("fx", "fy", "cx", "cy", "dist")}
+    leaves.update(width=jcam.width, height=jcam.height, model=jcam.model)
+    return tcamera.camera_from_numpy(leaves)
+
+
+def cameras(w, h, crop_borders, zoom=1.0):
+    jin = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (w, h))
+    jout = get_output_camera(jin, scale=1.0, crop_borders=crop_borders, zoom=zoom)
+    return jin, jout
+
+
+def yuv_frames(t, w, h, seed):
+    rng = np.random.default_rng(seed)
+    ys = rng.integers(0, 256, size=(t, h, w)).astype(np.uint8)
+    us = rng.integers(0, 256, size=(t, h // 2, w // 2)).astype(np.uint8)
+    vs = rng.integers(0, 256, size=(t, h // 2, w // 2)).astype(np.uint8)
+    return ys, us, vs
+
+
+def rotations(t, seed):
+    w = (np.random.default_rng(seed).normal(size=(t, 3)) * 0.03).astype(np.float32)
+    return np.array(jso3.exp(jnp.asarray(w)))
+
+
+def assert_u8_close(got, want):
+    got = np.asarray(got, np.int16)
+    want = np.asarray(want, np.int16)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1
+    assert (got == want).mean() >= MIN_EQUAL, (got == want).mean()
+
+
+@pytest.mark.parametrize("crop_borders", [True, False])
+def test_warp_image_matches_xla_oracle(crop_borders):
+    jin, jout = cameras(320, 240, crop_borders)
+    img = np.round(np.random.default_rng(0).uniform(0, 255, size=(240, 320)))
+    img = img.astype(np.float32)
+    rot = rotations(1, 1)[0]
+    want = np.asarray(warp_image_xla(jnp.asarray(img), jout, jin, jnp.asarray(rot)))
+    got = warp_plain.warp_image(torch.from_numpy(img), to_port(jout), to_port(jin),
+                                torch.tensor(rot)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=FLOAT_ATOL)
+
+
+def test_warp_yuv_batch_matches_jax_framewarper():
+    t, w, h = 3, 320, 240
+    jin, jout = cameras(w, h, False, zoom=1.0 / 1.2)
+    ys, us, vs = yuv_frames(t, w, h, 2)
+    rots = rotations(t, 3)
+    jw = JaxFrameWarper(jin, jout, max_correction_deg=8.0)
+    want = jw.warp_yuv_batch([jnp.asarray(a) for a in ys], [jnp.asarray(a) for a in us],
+                             [jnp.asarray(a) for a in vs], jnp.asarray(rots))
+    tw = FrameWarper(to_port(jin), to_port(jout))
+    got = tw.warp_yuv_batch(list(torch.from_numpy(ys)), list(torch.from_numpy(us)),
+                            list(torch.from_numpy(vs)), torch.from_numpy(rots))
+    assert (tw.out_w, tw.out_h) == (jw.out_w, jw.out_h)
+    for g, wnt in zip(got, want):
+        for gp, wp in zip(g, wnt):
+            assert_u8_close(gp.numpy(), np.asarray(wp))
+
+
+def test_warp_yuv_batch_matches_pallas_interpret():
+    t, w, h = 2, 320, 240
+    jin, jout = cameras(w, h, True)
+    ys, us, vs = yuv_frames(t, w, h, 4)
+    rots = rotations(t, 5)
+    out_w, out_h = jout.width - jout.width % 2, jout.height - jout.height % 2
+    jin_c, jout_c = _scaled_camera(jin, 0.5), _scaled_camera(jout, 0.5)
+    plan_y = plan_warp(jout, jin, 8.0, (out_h, out_w))
+    plan_c = plan_warp(jout_c, jin_c, 8.0, (out_h // 2, out_w // 2))
+    want = warp_yuv_batch_pallas(
+        [jnp.asarray(a) for a in ys], [jnp.asarray(a) for a in us],
+        [jnp.asarray(a) for a in vs], jnp.asarray(rots), plan_y, jout, jin,
+        plan_c, jout_c, jin_c, interpret=True)
+    wy, wu, wv = warp_kernel.warp_yuv_batch(
+        torch.from_numpy(ys), torch.from_numpy(us), torch.from_numpy(vs),
+        torch.from_numpy(rots), to_port(jout), to_port(jin), to_port(jout_c),
+        to_port(jin_c), (out_h, out_w))
+    for i in range(t):
+        for gp, wp in zip((wy[i], wu[i], wv[i]), want[i]):
+            assert_u8_close(gp.numpy(), np.asarray(wp))
+
+
+def test_chroma_border_is_neutral():
+    """Rays behind the input camera sample the border: 128 for chroma."""
+    jin, jout = cameras(64, 48, False)
+    src = torch.zeros((1, 2, 24, 32), dtype=torch.uint8)
+    backward = torch.tensor(np.asarray(jso3.exp(jnp.asarray([0.0, 3.0, 0.0]))))[None]
+    out = warp_kernel.warp_planes_u8(src, backward, to_port(_scaled_camera(jout, 0.5)),
+                                     to_port(_scaled_camera(jin, 0.5)), (10, 12),
+                                     border=128.0)
+    assert out.shape == (1, 2, 10, 12)
+    assert (out == 128).all()
+
+
+def test_warp_rejects_bad_operands():
+    jin, jout = cameras(64, 48, False)
+    with pytest.raises(ValueError):
+        warp_kernel.warp_planes_u8(torch.zeros((1, 3, 8, 8), dtype=torch.uint8),
+                                   torch.eye(3)[None], to_port(jout), to_port(jin),
+                                   (4, 4))
+    with pytest.raises(ValueError):
+        warp_kernel.warp_planes_u8(torch.zeros((1, 1, 8, 8), dtype=torch.float32),
+                                   torch.eye(3)[None], to_port(jout), to_port(jin),
+                                   (4, 4))

@@ -1,0 +1,149 @@
+"""Host->device frame feed and device->host writer, each on a worker thread.
+
+Port of ``video_annotator_tpu/io/prefetch.py`` (``DevicePrefetcher``,
+``AsyncFrameWriter``). On a CUDA device the prefetcher stages each
+decoded frame in a ring of pinned host buffers and copies it with
+``non_blocking`` on a side stream, a few frames ahead of the consumer;
+the consumer's stream waits on the copy's event before using the frame.
+On the CPU frames pass through as tensors.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+_SENTINEL = object()
+
+
+class DevicePrefetcher:
+    """Wrap a planar-YUV frame iterator; yields (y, u, v) uint8 tensors on
+    ``device`` with up to ``depth`` frames in flight."""
+
+    def __init__(self, frames, depth: int = 3, device="cpu"):
+        self._frames = frames
+        self._device = torch.device(device)
+        self._depth = max(depth, 1)
+        self._q: "queue.Queue" = queue.Queue(maxsize=self._depth)
+        self._err: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _upload(self, planes, stream, ring, slot):
+        """Copy host planes through pinned slot ``slot`` of ``ring``."""
+        prev = ring[slot]
+        if prev is not None:
+            prev[1].synchronize()  # the slot's last copy has finished
+        shapes = [np.shape(a) for a in planes]
+        if prev is None or [tuple(b.shape) for b in prev[0]] != shapes:
+            bufs = [torch.empty(s, dtype=torch.uint8, pin_memory=True)
+                    for s in shapes]
+        else:
+            bufs = prev[0]
+        for b, a in zip(bufs, planes):
+            b.numpy()[...] = a
+        with torch.cuda.stream(stream):
+            dev = tuple(b.to(self._device, non_blocking=True) for b in bufs)
+            event = torch.cuda.Event()
+            event.record(stream)
+        ring[slot] = (bufs, event)
+        return dev, event
+
+    def _worker(self):
+        try:
+            it = iter(self._frames)
+            cuda = self._device.type == "cuda"
+            stream = torch.cuda.Stream(self._device) if cuda else None
+            # A slot is refilled only after its previous copy finished
+            # (_upload waits on its event); more slots than the queue depth
+            # keep that wait off the common path.
+            ring = [None] * (self._depth + 2)
+            slot = 0
+            while not self._stop.is_set():
+                try:
+                    planes = next(it)
+                except StopIteration:
+                    break
+                if cuda:
+                    item = self._upload(planes, stream, ring, slot)
+                    slot = (slot + 1) % len(ring)
+                else:
+                    item = (tuple(torch.from_numpy(np.array(a, np.uint8))
+                                  for a in planes), None)
+                self._q.put(item)
+            self._q.put(_SENTINEL)
+        except BaseException as e:  # propagate into the consumer
+            self._err = e
+            self._q.put(_SENTINEL)
+
+    def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+        while True:
+            item = self._q.get()
+            if item is _SENTINEL:
+                if self._err is not None:
+                    raise self._err
+                return
+            planes, event = item
+            if event is not None:
+                current = torch.cuda.current_stream(self._device)
+                current.wait_event(event)
+                for p in planes:
+                    p.record_stream(current)
+            yield planes
+
+    def close(self):
+        """Stop and join the worker before the caller closes the source."""
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                while True:
+                    self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.05)
+
+
+class AsyncFrameWriter:
+    """Device->host readback + encode on a worker thread; ``depth`` bounds
+    the frames in flight. Errors surface on the next ``write`` or on
+    ``close``."""
+
+    def __init__(self, writer, depth: int = 3):
+        self._writer = writer
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
+        self._err: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        while True:
+            item = self._q.get()
+            if item is _SENTINEL:
+                return
+            if self._err is not None:
+                continue  # drain after failure
+            try:
+                self._writer.write(tuple(p.cpu().numpy() for p in item))
+            except BaseException as e:
+                self._err = e
+
+    def write(self, planes):
+        if self._err is not None:
+            raise self._err
+        self._q.put(planes)
+
+    def close(self):
+        self._q.put(_SENTINEL)
+        self._thread.join()
+        if self._err is not None:
+            try:
+                self._writer.close()
+            except Exception:
+                pass
+            raise self._err
+        self._writer.close()

@@ -1,0 +1,147 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Every kernel lives in ``video_annotator_tpu_torch/csrc/*.cu`` behind a
+plain C entry point. On first use the sources are compiled with ``nvcc``
+for ``sm_90a`` (Hopper) into one shared library under
+``video_annotator_tpu_torch/_build/`` (named by a hash of the sources and
+flags, so an edited source rebuilds) and loaded with ``ctypes``. Nothing
+here runs at import time: a host without ``nvcc`` or a card imports this
+module fine and only fails when a kernel is launched on a CUDA tensor.
+
+Each C entry point takes the launch stream last and returns
+``cudaGetLastError()``; :meth:`CudaKernel.launch` raises on a non-zero
+code, so a refused launch never passes silently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# Every kernel object, by name, in the order the modules define them.
+KERNELS: "dict[str, CudaKernel]" = {}
+
+
+class BuildResult:
+    def __init__(self, path: Path, seconds: float, log: str):
+        self.path = path
+        self.seconds = seconds
+        self.log = log
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME); the CUDA kernels of "
+            "video_annotator_tpu_torch are built from csrc/ at first use")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=1)
+def build() -> BuildResult:
+    """Compile ``csrc/*.cu`` (once per source digest) and return where the
+    library is, how long the build took and what ``nvcc`` printed."""
+    target = BUILD_DIR / f"libvat_kernels_{_digest()}.so"
+    if target.exists():
+        return BuildResult(target, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n{log}")
+    os.replace(tmp, target)
+    return BuildResult(target, seconds, log)
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build().path))
+    lib.vat_error_string.argtypes = [ctypes.c_int]
+    lib.vat_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+class CudaKernel:
+    """One C entry point of the library, with its launch count.
+
+    ``launches`` counts calls of :meth:`launch` and nothing else, so a
+    caller can reset it, run a path, and see which kernels that path ran.
+    """
+
+    def __init__(self, name: str, symbol: str, argtypes, source: str,
+                 replaces: str):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [ctypes.c_void_p]  # + stream
+        self.source = source  # the kernel's file in the repository
+        self.replaces = replaces  # file:line of the TPU kernel it replaces
+        self.launches = 0
+        KERNELS[name] = self
+
+    @functools.cached_property
+    def _fn(self):
+        fn = getattr(library(), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    def launch(self, *args) -> None:
+        stream = torch.cuda.current_stream().cuda_stream
+        err = self._fn(*args, stream)
+        self.launches += 1
+        if err != 0:
+            msg = library().vat_error_string(err).decode()
+            raise RuntimeError(f"CUDA kernel {self.name} failed: {msg} ({err})")
+
+
+def check_cuda(t: torch.Tensor) -> None:
+    """Wrappers take CPU tensors (plain version) or CUDA tensors (kernel)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+
+
+def check_operands(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is contiguous and all share one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {t.device} vs {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,253 @@
+"""Pyramidal LK over all adjacent frame pairs of a chunk (kernel K2).
+
+Port of ``video_annotator_tpu/ops/lk_pallas.py``'s batched-pairs path:
+``lk_pack_pyramid_pairs`` (:511), ``_lk_level_pallas_pairs`` (:557) and
+``pyramidal_lk_pallas_pairs`` (:633), with the per-point math of
+``_make_lk_kernel`` (:73-263) in ``csrc/lk.cu``.
+
+Levels are staged by K3 into (T, H', W') uint8 stacks (rounded half to
+even, padded to 32 rows / 128 columns, 32 slack rows of the last 4-row
+group) -- the bytes the TPU kernel read from its packed words. The
+window geometry of the TPU kernel is kept on the host in :func:`origins`:
+each point's 48 x 256 window in the prev frame (around p) and the next
+frame (around p + guess), whose bounds clamp the Newton drift and clear
+the status exactly where the TPU kernel's once-fetched window ended.
+
+On CPU tensors :func:`lk_level_pairs` runs :func:`lk_level_plain`; on
+CUDA tensors it launches ``csrc/lk.cu`` or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from video_annotator_tpu_torch.ops import cuda_lib
+from video_annotator_tpu_torch.ops.lk import (
+    DEF_ITERS,
+    DEF_LEVELS,
+    MIN_EIG_THRESHOLD,
+    WIN,
+    build_pyramid,
+)
+from video_annotator_tpu_torch.ops.stage import stage_u8
+
+HALF = WIN // 2
+PAD = 6  # Newton drift allowance (pixels) inside the window
+NSTRIP = 2  # 128-column strips per window
+WCOLS = NSTRIP * 128
+DMA_WORDS = 20  # word rows (4 pixel rows each) the TPU kernel fetched
+AW = 12  # aligned window word rows: 48 pixel rows
+RY0 = PAD
+SLACK_ROWS = 32  # 8 replicated word rows below each band
+Y_HI = float(4 * AW - WIN - 3)
+X_HI = float(WCOLS - WIN - 2)
+
+LK_LEVEL = cuda_lib.CudaKernel(
+    "lk_level", "vat_lk_level",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_int],
+    source="video_annotator_tpu_torch/csrc/lk.cu",
+    replaces="video_annotator_tpu/ops/lk_pallas.py:557",  # _lk_level_pallas_pairs
+)
+
+
+def origins(p: torch.Tensor, wstrips: int, hwords: int):
+    """Window origin and in-window offsets for level positions ``p`` (N, 2).
+
+    Returns ``(oy, sx, bw, ry, ixw, ok)`` exactly as the TPU kernel's
+    ``_origins`` (lk_pallas.py:266-303): ``oy`` an 8-word-aligned word row,
+    ``sx`` a 128-column strip, ``bw`` the word residue, ``ry``/``ixw`` the
+    template's halo corner inside the window, ``ok`` whether the span fits
+    the (clamped) window. ``hwords`` counts 4-row words of one band."""
+    p = p.clamp(-1e6, 1e6)  # garbage flows of failed points stay finite
+    ix = torch.floor(p[:, 0]).to(torch.int32)
+    iy = torch.floor(p[:, 1]).to(torch.int32)
+    sx0 = (ix - (HALF + PAD + 1)) // 128
+    sx = sx0.clamp(0, max(wstrips - NSTRIP, 0))
+    wy = (iy - (HALF + 1 + PAD)) // 4
+    oy0 = (wy // 8) * 8
+    oy = oy0.clamp(0, max(((hwords - DMA_WORDS) // 8) * 8, 0))
+    bw = (wy - oy).clamp(0, 7)
+    ry = p[:, 1] - float(HALF + 1) - ((oy + bw) * 4).to(torch.float32)
+    ixw = p[:, 0] - (sx * 128).to(torch.float32) - float(HALF)
+    fry = torch.floor(ry)
+    ok = ((fry >= float(RY0)) & (fry <= float(RY0 + 3))
+          & (ixw >= 1.0) & (ixw <= float(WCOLS - WIN - 3)))
+    return oy, sx, bw, ry, ixw, ok
+
+
+def _sampler(stack: torch.Tensor, row0: torch.Tensor, col0: torch.Tensor):
+    """Window reads for the plain version: rows clamp into the window,
+    columns past its 256 read 0 (the kernel's ``Window::at``)."""
+    flat = stack.reshape(-1)
+    pitch = stack.shape[-1]
+    row0 = row0.to(torch.int64)[:, None, None]
+    col0 = col0.to(torch.int64)[:, None, None]
+
+    def at(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        yc = y.clamp(0, 4 * AW - 1)
+        inside = (x >= 0) & (x < WCOLS)
+        v = flat[(row0 + yc) * pitch + col0 + x.clamp(0, WCOLS - 1)]
+        return torch.where(inside, v.to(torch.float32), 0.0)
+
+    return at
+
+
+def _floor_index(v: torch.Tensor) -> torch.Tensor:
+    return torch.floor(v.clamp(-1024.0, 1024.0)).to(torch.int64)
+
+
+def lk_level_plain(stack: torch.Tensor, pf: torch.Tensor, pi: torch.Tensor,
+                   iters: int) -> torch.Tensor:
+    """Plain torch version of ``csrc/lk.cu`` over (M, 6) float / (M, 4) int
+    per-point arguments; returns (M, 3) = (flow x, flow y, ok)."""
+    gx0, gy0, ryp, ixp, ryn, ixn = pf.unbind(1)
+    prev = _sampler(stack, pi[:, 0], pi[:, 1])
+    nxt = _sampler(stack, pi[:, 2], pi[:, 3])
+    dev = stack.device
+
+    def bilinear_rows(at, ry, ix, nrows, ncols):
+        iy = _floor_index(ry)[:, None, None]
+        ixi = _floor_index(ix)[:, None, None]
+        fy = (ry - torch.floor(ry))[:, None, None]
+        fx = (ix - torch.floor(ix))[:, None, None]
+        y = iy + torch.arange(nrows + 1, device=dev)[None, :, None]
+        x = ixi + torch.arange(ncols, device=dev)[None, None, :]
+        s = at(y, x) * (1.0 - fx) + at(y, x + 1) * fx
+        return s[:, :-1] * (1.0 - fy) + s[:, 1:] * fy
+
+    rows = bilinear_rows(prev, ryp, ixp - 1.0, WIN + 3, WIN + 2)
+    t, m, b = rows[:, 0:WIN], rows[:, 1:WIN + 1], rows[:, 2:WIN + 2]
+    gx = (3.0 * (t[..., 2:] - t[..., :WIN]) + 10.0 * (m[..., 2:] - m[..., :WIN])
+          + 3.0 * (b[..., 2:] - b[..., :WIN])) / 32.0
+    gy = (3.0 * (b[..., :WIN] - t[..., :WIN])
+          + 10.0 * (b[..., 1:WIN + 1] - t[..., 1:WIN + 1])
+          + 3.0 * (b[..., 2:] - t[..., 2:])) / 32.0
+    tpl = m[..., 1:WIN + 1]
+    gxx = (gx * gx).sum((1, 2))
+    gxy = (gx * gy).sum((1, 2))
+    gyy = (gy * gy).sum((1, 2))
+    det = gxx * gyy - gxy * gxy
+    trace = gxx + gyy
+    min_eig = (trace - torch.sqrt(torch.clamp(trace * trace - 4.0 * det,
+                                              min=0.0))) * 0.5
+    inv_det = torch.where(det.abs() > 1e-12, 1.0 / det, 0.0)
+
+    vx, vy = gx0, gy0
+    for _ in range(iters):
+        oy = torch.clamp((ryn + 1.0) + (vy - gy0), 1.0, Y_HI)
+        ox = torch.clamp(ixn + (vx - gx0), 1.0, X_HI)
+        r = bilinear_rows(nxt, oy, ox, WIN, WIN) - tpl
+        bx = (r * gx).sum((1, 2))
+        by = (r * gy).sum((1, 2))
+        vx = vx - (gyy * bx - gxy * by) * inv_det
+        vy = vy - (gxx * by - gxy * bx) * inv_det
+
+    oy_want = (ryn + 1.0) + (vy - gy0)
+    ox_want = ixn + (vx - gx0)
+    unsat = ((oy_want >= 1.0) & (oy_want <= Y_HI)
+             & (ox_want >= 1.0) & (ox_want <= X_HI))
+    ok = (min_eig / float(WIN * WIN) > MIN_EIG_THRESHOLD) & unsat
+    return torch.stack([vx, vy, ok.to(torch.float32)], dim=1)
+
+
+def level_args(stack: torch.Tensor, pts: torch.Tensor, band: torch.Tensor,
+               guess: torch.Tensor):
+    """Per-point kernel arguments of one level: ``pf`` (M, 6) float32 =
+    (guess x, guess y, ry prev, ix prev, ry next, ix next), ``pi`` (M, 4)
+    int32 = absolute stack row and column of the prev and next windows,
+    and the host-side window gate ``ok`` (M,)."""
+    if stack.dim() != 3 or stack.dtype != torch.uint8:
+        raise ValueError("lk stack must be (T, H', W') uint8")
+    _, rows, pitch = stack.shape
+    if rows % 32 or pitch % 128 or pitch < WCOLS or rows < 4 * DMA_WORDS:
+        raise ValueError(f"lk stack {tuple(stack.shape)} is not a staged level")
+    band = band.to(torch.int64)
+    oyp, sxp, bwp, ryp, ixp, okp = origins(pts, pitch // 128, rows // 4)
+    oyn, sxn, bwn, ryn, ixn, okn = origins(pts + guess, pitch // 128, rows // 4)
+    pf = torch.stack([guess[:, 0], guess[:, 1], ryp, ixp, ryn, ixn], dim=1)
+    pi = torch.stack([
+        band * rows + 4 * (oyp + bwp).to(torch.int64),
+        (sxp * 128).to(torch.int64),
+        (band + 1) * rows + 4 * (oyn + bwn).to(torch.int64),
+        (sxn * 128).to(torch.int64),
+    ], dim=1).to(torch.int32)
+    return pf.to(torch.float32).contiguous(), pi.contiguous(), okp & okn
+
+
+def lk_level(stack: torch.Tensor, pf: torch.Tensor, pi: torch.Tensor,
+             iters: int = DEF_ITERS) -> torch.Tensor:
+    """One LK level over :func:`level_args` arguments; (M, 3) = (flow x,
+    flow y, ok). The plain version on CPU tensors, ``csrc/lk.cu`` on CUDA
+    tensors."""
+    if stack.device.type == "cpu":
+        return lk_level_plain(stack, pf, pi, iters)
+    cuda_lib.check_cuda(stack)
+    stack = stack.contiguous()
+    m = pf.shape[0]
+    out = torch.empty((m, 3), dtype=torch.float32, device=stack.device)
+    cuda_lib.check_operands(stack, pf, pi, out)
+    LK_LEVEL.launch(cuda_lib.ptr(stack), stack.shape[-1], cuda_lib.ptr(pf),
+                    cuda_lib.ptr(pi), cuda_lib.ptr(out), m, int(iters))
+    return out
+
+
+def lk_level_pairs(stack: torch.Tensor, pts: torch.Tensor, band: torch.Tensor,
+                   guess: torch.Tensor, iters: int = DEF_ITERS):
+    """One LK level for M points: point i tracks from frame ``band[i]`` to
+    ``band[i] + 1`` of the (T, H', W') uint8 ``stack``, starting at level
+    flow ``guess``. Returns ``(vx, vy, ok)``."""
+    pf, pi, ok_windows = level_args(stack, pts, band, guess)
+    out = lk_level(stack, pf, pi, iters)
+    return out[:, 0], out[:, 1], (out[:, 2] > 0.5) & ok_windows
+
+
+def stage_pyramid_pairs(frames: torch.Tensor,
+                        levels: int = DEF_LEVELS) -> Sequence[Optional[torch.Tensor]]:
+    """Staged uint8 pyramid of a (T, H, W) chunk, one stack per level;
+    ``None`` for levels too small for the window (the tracker keeps its
+    coarse guess there, as the TPU path does)."""
+    staged = []
+    for level in build_pyramid(frames, levels):
+        ph, pw = level.shape[-2:]
+        if ph < 4 * DMA_WORDS + 32 or pw < WCOLS:
+            staged.append(None)
+        else:
+            staged.append(stage_u8(level, pad_value=0, slack=SLACK_ROWS))
+    return staged
+
+
+def pyramidal_lk_pairs(staged: Sequence[Optional[torch.Tensor]],
+                       img_shape: Tuple[int, int], points: torch.Tensor,
+                       valid: torch.Tensor, iters: int = DEF_ITERS):
+    """Track N points through each of P adjacent pairs, coarse to fine.
+
+    ``staged`` is :func:`stage_pyramid_pairs` of the chunk's P + 1 frames;
+    ``points`` (P, N, 2) and ``valid`` (P, N) are in level-0 coordinates of
+    frame p. Returns ``(new_points (P, N, 2), status (P, N))``. Points are
+    independent (one warp each), so unlike the TPU path they are not
+    padded to a multiple of 8."""
+    h, w = img_shape
+    p_, n_ = points.shape[0], points.shape[1]
+    pts = points.reshape(p_ * n_, 2).to(torch.float32)
+    band = torch.arange(p_, device=pts.device).repeat_interleave(n_)
+    flow = torch.zeros_like(pts)
+    status = valid.reshape(-1)
+    for lvl in range(len(staged) - 1, -1, -1):
+        if staged[lvl] is None:
+            continue
+        scale = 2.0 ** lvl
+        vx, vy, ok = lk_level_pairs(staged[lvl], pts / scale, band,
+                                    flow / scale, iters)
+        flow = torch.stack([vx, vy], dim=-1) * scale
+        status = status & ok
+    new_pts = pts + flow
+    half = float(HALF)
+    in_bounds = ((pts[:, 0] >= half) & (pts[:, 0] < w - half)
+                 & (pts[:, 1] >= half) & (pts[:, 1] < h - half)
+                 & (new_pts[:, 0] >= half) & (new_pts[:, 0] < w - half)
+                 & (new_pts[:, 1] >= half) & (new_pts[:, 1] < h - half))
+    return new_pts.reshape(p_, n_, 2), (status & in_bounds).reshape(p_, n_)

@@ -1,0 +1,673 @@
+"""Two-phase render: analyse (motion) then encode (warp), on one device.
+
+Port of the stock path of ``video_annotator_tpu/pipeline/render.py``:
+``render in out --stabilise smooth`` for the rotation family, two-phase,
+with paired analyse, Savitzky-Golay smoothing on SO(3) and the bilinear
+rectilinear warp.
+
+1. Analyse (:class:`PairTracker`, :func:`analyse`): per chunk of G frames
+   (plus the previous chunk's last), box-downsample the luma to the
+   tracking scale, detect Shi-Tomasi corners one level lower, stage the
+   uint8 LK pyramids (K3), track every adjacent pair in one LK launch per
+   level (K2), estimate each pair's rotation by RANSAC, carry failed pairs
+   over with a last-valid scan and chain the deltas with a prefix product.
+2. Corrections (:func:`compute_corrections`): SG-smooth the trajectory's
+   matrix entries, project back onto SO(3), correction = measured .
+   smoothed^T . attitude.
+3. Encode (:func:`encode`): warp Y, U and V of batches of frames through
+   the fused warp (K1) and write them.
+
+Every library entry point takes ``device``. Options outside this slice
+(other families, streaming, gyro, Kalman, horizon lock, rolling shutter,
+other resamplers and projections, prefilter, crop, overlays) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from fractions import Fraction
+from typing import Optional
+
+import numpy as np
+import torch
+
+from video_annotator_tpu_torch import so3
+from video_annotator_tpu_torch.camera import (
+    Camera,
+    CameraModel,
+    CameraPreset,
+    camera_from_dfov,
+    get_output_camera,
+    get_preset_camera,
+)
+from video_annotator_tpu_torch.io.prefetch import AsyncFrameWriter, DevicePrefetcher
+from video_annotator_tpu_torch.io.video import VideoMeta, open_reader, open_writer
+from video_annotator_tpu_torch.ops.corners import detect_corners
+from video_annotator_tpu_torch.ops.lk import DEF_LEVELS, WIN
+from video_annotator_tpu_torch.ops.lk_kernel import (
+    pyramidal_lk_pairs,
+    stage_pyramid_pairs,
+)
+from video_annotator_tpu_torch.ops.ransac import (
+    NUM_HYPOTHESES,
+    estimate_rotation,
+    sample_pairs,
+)
+from video_annotator_tpu_torch.ops.warp_kernel import warp_yuv_batch
+from video_annotator_tpu_torch.ops.warp_plain import (
+    box_downsample,
+    mip_camera,
+    scaled_camera,
+)
+from video_annotator_tpu_torch.pipeline.profiler import Progress, StageProfiler
+from video_annotator_tpu_torch.pipeline.trajectory import (
+    KIND_DIMS,
+    Trajectory,
+    trajectory_path,
+)
+from video_annotator_tpu_torch.smoothing.savgol import savgol_weights, sg_conv
+
+KEY_FRAME_MIN_CORNERS = 150
+MAX_CORNERS = 200
+MIN_INLIERS_FULL = 40
+RANSAC_SEED = 7  # the JAX package's PRNGKey(7)
+DEFAULT_WARP_BATCH = 32
+
+PROJECTION_MODELS = {
+    "rect": CameraModel.RECTILINEAR,
+    "flat": CameraModel.RECTILINEAR,
+    "gnomonic": CameraModel.RECTILINEAR,
+    "fisheye": CameraModel.FISHEYE,
+    "fish": CameraModel.FISHEYE,
+    "equirect": CameraModel.EQUIRECT,
+    "equirectangular": CameraModel.EQUIRECT,
+    "e": CameraModel.EQUIRECT,
+    "stereographic": CameraModel.STEREOGRAPHIC,
+    "sg": CameraModel.STEREOGRAPHIC,
+    "mercator": CameraModel.MERCATOR,
+    "ball": CameraModel.BALL,
+    "hammer": CameraModel.HAMMER,
+    "sinusoidal": CameraModel.SINUSOIDAL,
+    "sinusoid": CameraModel.SINUSOIDAL,
+    "cylindrical": CameraModel.CYLINDRICAL,
+    "pannini": CameraModel.PANNINI,
+}
+
+
+@dataclasses.dataclass
+class RenderOptions:
+    """The CLI's render options; field for field those of the JAX package."""
+
+    start: Optional[float] = None
+    duration: Optional[float] = None
+    end: Optional[float] = None
+    width: Optional[int] = None
+    height: Optional[int] = None
+    scale: float = 1.0
+    crop_borders: bool = False
+    crop_rect: Optional[str] = None
+    upsample: float = 0.0  # percent
+    roll: float = 0.0
+    pitch: float = 0.0
+    yaw: float = 0.0
+    filter: str = "rotation"
+    stabilise: str = "none"  # none | fixed | smooth
+    smoother: str = "savgol"  # savgol | kalman
+    stabilise_radius: int = 90
+    interpolate_radius: int = 30
+    stabilise_buffer: float = 20.0  # percent extra canvas while stabilising
+    input_dfov: float = 145.8
+    output_dfov: Optional[float] = None
+    projection: str = "rect"
+    preset: Optional[CameraPreset] = None
+    gyro: bool = False
+    streaming: bool = False
+    horizon_lock: bool = False
+    rolling_shutter: float = 0.0
+    analyse_only: bool = False
+    encode_only: bool = False
+    no_output: bool = False
+    device_sink: bool = False
+    encoder: str = "mp4v"
+    frame_rate: Optional[float] = None
+    warp_batch: Optional[int] = None  # None: 32 frames per warp launch
+    prefetch_depth: int = 3
+    native_io: bool = True
+    analysis_scale: object = "auto"
+    analysis_chunk: int = 16
+    analysis_mode: str = "auto"  # auto | tracked | paired
+    analysis_detect_level: int = 1
+    analysis_iters: int = 8
+    preview: Optional[str] = None
+    preview_every: int = 30
+    display: bool = False
+    # Accepted for the frozen CLI surface; bounds nothing in this package
+    # (the warp kernel has no static per-tile windows to size).
+    max_correction_deg: float = 8.0
+    prefilter: str = "off"  # off | auto
+    interp: str = "bilinear"
+    debug: bool = False
+    cell_labels: bool = True
+    verbose: bool = False
+
+
+# (option, value that this package runs, ROADMAP.md item that ports the rest)
+_UNPORTED = (
+    ("filter", ("rotation", "dewobble"), "2D families"),
+    ("streaming", (False,), "streaming"),
+    ("gyro", (False,), "kalman/horizon/gyro/rolling"),
+    ("smoother", ("savgol",), "kalman/horizon/gyro/rolling"),
+    ("horizon_lock", (False,), "kalman/horizon/gyro/rolling"),
+    ("rolling_shutter", (0.0,), "kalman/horizon/gyro/rolling"),
+    ("interp", ("bilinear",), "interp/projection/prefilter modes"),
+    ("prefilter", ("off",), "interp/projection/prefilter modes"),
+    ("projection", ("rect", "flat", "gnomonic"), "interp/projection/prefilter modes"),
+    ("crop_rect", (None,), "compare/debug/workflow/calibrate/join/probe"),
+    ("debug", (False,), "compare/debug/workflow/calibrate/join/probe"),
+    ("preview", (None,), "compare/debug/workflow/calibrate/join/probe"),
+    ("display", (False,), "compare/debug/workflow/calibrate/join/probe"),
+    ("device_sink", (False,), "benchmark ports"),
+)
+
+
+def check_ported(options: RenderOptions) -> None:
+    """Raise ``NotImplementedError`` for an option this package cannot run."""
+    for name, ported, item in _UNPORTED:
+        value = getattr(options, name)
+        if value not in ported:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported to the torch package yet "
+                f"(ROADMAP.md, modules still to port: {item})")
+
+
+def resolve_analysis_mode(options, device) -> str:
+    """``auto`` is ``paired`` on a CUDA device. The JAX package picks the
+    sequential ``tracked`` analyser on the CPU, which is not ported yet,
+    so ``auto`` on the CPU raises instead of silently changing mode."""
+    mode = getattr(options, "analysis_mode", "auto")
+    if mode not in ("auto", "tracked", "paired"):
+        raise ValueError(f"--analysis-mode must be auto, tracked or paired (got {mode})")
+    if mode == "auto":
+        if torch.device(device).type == "cuda":
+            return "paired"
+        mode = "tracked"
+    if mode == "tracked":
+        raise NotImplementedError(
+            "the tracked analyser (--analysis-mode auto on the CPU) is not ported "
+            "to the torch package yet (ROADMAP.md, modules still to port: "
+            "tracked analyse); pass analysis_mode='paired'")
+    return mode
+
+
+def resolve_analysis_scale(o, meta=None) -> float:
+    """``auto``: the largest of {1, 0.5, 0.25} whose tracked frame fits
+    h <= 1536 and w <= 2048 (0.5 at 4K); explicit scales win."""
+    scale = getattr(o, "analysis_scale", "auto")
+    if scale in ("auto", None):
+        if meta is None:
+            return 1.0
+        for s in (1.0, 0.5, 0.25):
+            if meta.height * s <= 1536 and meta.width * s <= 2048:
+                return s
+        return 0.25
+    try:
+        scale = float(scale)
+    except (TypeError, ValueError):
+        scale = None
+    if scale not in (1.0, 0.5, 0.25):
+        raise ValueError(
+            f"--analysis-scale must be auto, 1, 0.5 or 0.25 "
+            f"(got {getattr(o, 'analysis_scale', None)!r})")
+    return scale
+
+
+def analysis_level(o, meta=None) -> int:
+    return {1.0: 0, 0.5: 1, 0.25: 2}[resolve_analysis_scale(o, meta)]
+
+
+def tracking_gates(track_w: int) -> tuple:
+    """(min_distance, min_inliers, min_refresh) for a tracking width."""
+    res_scale = max(track_w / 1920.0, 0.15)
+    min_distance = max(6, int(round(30 * res_scale)))
+    min_inliers = max(10, min(MIN_INLIERS_FULL, int(round(40 * res_scale))))
+    min_refresh = max(20, int(round(KEY_FRAME_MIN_CORNERS * res_scale)))
+    return min_distance, min_inliers, min_refresh
+
+
+def tracking_border(track_w: int, track_h: int) -> int:
+    """Corner-seeding border: the deepest pyramid level's window margin at
+    tracking resolution, capped by the frame size."""
+    margin = 2 ** (DEF_LEVELS - 1) * (WIN // 2 + 1)
+    return max(8, min(margin, min(track_w, track_h) // 6))
+
+
+def _frame_range(meta: VideoMeta, o: RenderOptions):
+    fps = float(meta.fps)
+    first = int(round((o.start or 0.0) * fps))
+    last = meta.num_frames if meta.num_frames else 1 << 30
+    if o.end is not None:
+        last = min(last, int(round(o.end * fps)))
+    if o.duration is not None:
+        last = min(last, first + int(round(o.duration * fps)))
+    return first, last
+
+
+def open_trimmed(source: str, o, device):
+    """(reader, meta, first, last) with the reader seeked to the trim start
+    where the source can seek."""
+    reader = open_reader(source, device=device)
+    meta = reader.meta
+    first, last = _frame_range(meta, o)
+    if first > 0 and not source.startswith("synthetic://"):
+        reader.close()
+        reader = open_reader(source, start_frame=first, device=device)
+    return reader, meta, first, last
+
+
+def upsample_factor(upsample) -> float:
+    """--upsample as a scale factor (absolute percent: 150 -> 1.5x)."""
+    if upsample and upsample < 0:
+        raise ValueError(
+            f"--upsample is an absolute percent of the input size "
+            f"(150 = 1.5x, 50 = 0.5x); got {upsample}")
+    return (upsample / 100.0) if upsample else 1.0
+
+
+def output_fps(options, meta) -> Fraction:
+    return (Fraction(options.frame_rate).limit_denominator(1001)
+            if options.frame_rate else meta.fps)
+
+
+def _input_camera(meta: VideoMeta, o: RenderOptions) -> Camera:
+    size = (meta.width, meta.height)
+    if o.preset is not None:
+        return get_preset_camera(o.preset, size)
+    return camera_from_dfov(o.input_dfov, size, CameraModel.FISHEYE)
+
+
+def build_cameras(meta: VideoMeta, o: RenderOptions):
+    """Input camera from preset/dfov; output camera auto-fit or explicit,
+    with the stabilise buffer widening the canvas while stabilising."""
+    in_cam = _input_camera(meta, o)
+    out_scale = o.scale * upsample_factor(o.upsample)
+    zoom = 1.0
+    if o.stabilise != "none" and o.stabilise_buffer:
+        zoom = 1.0 / (1.0 + o.stabilise_buffer / 100.0)
+    out_model = PROJECTION_MODELS.get(o.projection, CameraModel.RECTILINEAR)
+    if o.width and o.height and o.output_dfov:
+        out_cam = camera_from_dfov(o.output_dfov, (o.width, o.height), out_model)
+    elif out_model != CameraModel.RECTILINEAR or o.output_dfov:
+        base = get_output_camera(in_cam, scale=out_scale,
+                                 crop_borders=o.crop_borders, zoom=zoom)
+        size = (o.width or base.width, o.height or base.height)
+        dfov = o.output_dfov or o.input_dfov
+        out_cam = camera_from_dfov(dfov, size, out_model)
+    else:
+        out_cam = get_output_camera(in_cam, scale=out_scale,
+                                    crop_borders=o.crop_borders, zoom=zoom)
+        if o.width or o.height:
+            up = upsample_factor(o.upsample)
+            tw = o.width or round(meta.width * up)
+            th = o.height or round(meta.height * up)
+            sx = tw / out_cam.width
+            out_cam = Camera.make(
+                out_cam.fx * sx, out_cam.fy * sx, out_cam.cx * sx,
+                out_cam.cy * sx - (out_cam.height * sx - th) / 2.0,
+                tw, th, out_cam.model,
+            )
+    return in_cam, out_cam
+
+
+# --- phase 1: analyse ------------------------------------------------------
+
+
+def pair_generator(seed: int, frame_index: int) -> torch.Generator:
+    """The RANSAC generator of the pair ending at global ``frame_index``:
+    a function of the index alone, so trajectories do not depend on the
+    chunk size (or on the device: it draws on the CPU)."""
+    return torch.Generator().manual_seed((seed << 32) + int(frame_index))
+
+
+class PairTracker:
+    """Paired analyse of one chunk (``--analysis-mode paired``).
+
+    Detect fresh corners on every frame, LK-track all adjacent pairs in
+    one K2 launch per pyramid level, RANSAC every pair, carry failed pairs
+    (fewer than the inlier gate) over with the last good delta, and chain
+    the deltas into accumulated rotations."""
+
+    def __init__(self, meta: VideoMeta, options: RenderOptions, device):
+        self.device = torch.device(device)
+        in_cam_native = _input_camera(meta, options)
+        self.level = analysis_level(options, meta)
+        self.in_cam = mip_camera(in_cam_native, self.level)
+        track_w = self.in_cam.width
+        self.threshold = 8.0 / float(in_cam_native.fx)
+        min_distance, self.min_inliers, _ = tracking_gates(track_w)
+        border = tracking_border(track_w, self.in_cam.height)
+        self.iters = int(options.analysis_iters)
+        self.detect_level = max(0, int(options.analysis_detect_level))
+        self.det_md = max(1, min_distance >> self.detect_level)
+        self.det_border = max(4, -(-border // (1 << self.detect_level)))
+        self.det_scale = float(1 << self.detect_level)
+
+    def hypothesis_pairs(self, status: torch.Tensor, offset: int) -> torch.Tensor:
+        uniforms = torch.stack([
+            torch.rand((NUM_HYPOTHESES, 2),
+                       generator=pair_generator(RANSAC_SEED, offset + i))
+            for i in range(status.shape[0])
+        ]).to(status.device)
+        return sample_pairs(status, uniforms)
+
+    def __call__(self, r_base: torch.Tensor, prev_delta: torch.Tensor,
+                 offset: int, frames: torch.Tensor):
+        """(G+1, H, W) uint8 frames (element 0 = the previous chunk's last)
+        -> (r_base', prev_delta', (G, 3, 3) accumulated rotations)."""
+        grays = box_downsample(frames.to(torch.float32), self.level)
+        g = frames.shape[0] - 1
+        det_in = box_downsample(grays[:-1], self.detect_level)
+        pts, valid = detect_corners(det_in, max_corners=MAX_CORNERS,
+                                    min_distance=self.det_md,
+                                    border=self.det_border)
+        if self.detect_level:
+            pts = pts * self.det_scale + (self.det_scale - 1.0) * 0.5
+        staged = stage_pyramid_pairs(grays)
+        new_pts, status = pyramidal_lk_pairs(
+            staged, (grays.shape[1], grays.shape[2]), pts, valid,
+            iters=self.iters)
+        est = estimate_rotation(
+            self.in_cam.unproject_unit(pts), self.in_cam.unproject_unit(new_pts),
+            status, threshold_rad=self.threshold,
+            pairs=self.hypothesis_pairs(status, offset))
+
+        # Last-valid scan: a failed pair inherits the nearest preceding good
+        # delta (the carry for the chunk's first pairs).
+        ok = torch.cat([torch.ones(1, dtype=torch.bool, device=self.device),
+                        est.num_inliers >= self.min_inliers])
+        rots = torch.cat([prev_delta[None], est.rotation])
+        steps = torch.arange(g + 1, device=self.device)
+        last_ok = torch.cummax(torch.where(ok, steps, 0), dim=0).values
+        deltas = rots[last_ok][1:]
+        # R_t = delta_t ... delta_1 . r_base
+        prods = [deltas[0]]
+        for i in range(1, g):
+            prods.append(so3.matmul(deltas[i], prods[-1]))
+        rs = so3.orthonormalize(so3.matmul(torch.stack(prods), r_base))
+        return rs[-1], deltas[-1], rs
+
+
+def analyse(source: str, options: RenderOptions,
+            profiler: Optional[StageProfiler] = None, device="cuda") -> Trajectory:
+    """Per-frame accumulated camera rotations of ``source``."""
+    prof = profiler or StageProfiler()
+    resolve_analysis_mode(options, device)
+    dev = torch.device(device)
+    reader, meta, first, last = open_trimmed(source, options, dev)
+    tracker = PairTracker(meta, options, dev)
+    chunk_n = max(1, int(options.analysis_chunk))
+    eye = torch.eye(3, dtype=torch.float32, device=dev)
+    r_base, prev_delta = eye, eye
+    r_list = []
+    prev_frame = None
+    pending: list = []
+    emitted = 0
+
+    def flush_chunk():
+        """Pad the tail by repeating its last frame; padded outputs drop."""
+        nonlocal prev_frame, r_base, prev_delta, emitted
+        k = len(pending)
+        if not k:
+            return
+        frames = [prev_frame] + pending + [pending[-1]] * (chunk_n - k)
+        prev_frame = pending[-1]
+        pending.clear()
+        r_base, prev_delta, rs = tracker(r_base, prev_delta, emitted,
+                                         torch.stack(frames))
+        emitted += k
+        r_list.append(rs[:k])
+
+    pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
+                           depth=options.prefetch_depth, device=dev)
+    prog = Progress("analyse", total=(last - first) if meta.num_frames else None)
+    idx = reader.start_frame - 1
+    try:
+        for y, _, _ in pre:
+            idx += 1
+            if idx < first:
+                continue
+            if idx >= last:
+                break
+            if prev_frame is None:
+                prev_frame = y
+                r_list.append(r_base[None])
+            else:
+                with prof.stage("track"):
+                    pending.append(y)
+                    if len(pending) >= chunk_n:
+                        flush_chunk()
+            prog.tick()
+        with prof.stage("track"):
+            flush_chunk()
+    finally:
+        prog.close()
+        pre.close()
+        reader.close()
+
+    with prof.stage("collect"):
+        if r_list:
+            rotvecs = so3.log(torch.cat(r_list)).cpu().numpy().astype(np.float64)
+        else:
+            rotvecs = np.zeros((0, 3))
+    return Trajectory(params=rotvecs, kind="so3", fps=meta.fps,
+                      width=meta.width, height=meta.height, source=source)
+
+
+# --- phase 2: encode -------------------------------------------------------
+
+
+def _lock_and_attitude(measured: torch.Tensor, virtual: torch.Tensor,
+                       options: RenderOptions) -> torch.Tensor:
+    """corr = measured . virtual^T (identity when not stabilising), then
+    the --roll/--pitch/--yaw attitude."""
+    if options.stabilise == "none":
+        corr = torch.eye(3, dtype=measured.dtype,
+                         device=measured.device).expand(measured.shape)
+    else:
+        corr = so3.matmul(measured, so3.transpose(virtual))
+    attitude = so3.from_euler(np.radians(options.roll), np.radians(options.pitch),
+                              np.radians(options.yaw), device=measured.device)
+    return so3.matmul(corr, attitude[None])
+
+
+def make_window_corrections(radius: int, options: RenderOptions):
+    """(B + 2 radius, 3, 3) measured window -> (B, 3, 3) corrections for the
+    none / fixed / smooth (savgol) modes; radius 0 for none and fixed."""
+    if options.stabilise not in ("none", "fixed", "smooth"):
+        raise ValueError(f"unknown stabilise mode {options.stabilise!r}")
+    if options.smoother not in ("savgol", "kalman"):
+        raise ValueError(f"unknown smoother {options.smoother!r}")
+    if options.smoother == "kalman" and options.stabilise == "smooth":
+        raise NotImplementedError(
+            "--smoother kalman is not ported to the torch package yet "
+            "(ROADMAP.md, modules still to port: kalman/horizon/gyro/rolling)")
+    w = torch.from_numpy(savgol_weights(radius, order=2))
+
+    def window_corr(window: torch.Tensor) -> torch.Tensor:
+        measured = window[radius: window.shape[0] - radius]
+        if options.stabilise == "none":
+            virtual = measured
+        elif options.stabilise == "fixed":
+            virtual = torch.eye(3, dtype=window.dtype,
+                                device=window.device).expand(measured.shape)
+        else:
+            sm = sg_conv(window.reshape(-1, 9), w)
+            virtual = so3.project(sm.reshape(-1, 3, 3))
+        return _lock_and_attitude(measured, virtual, options)
+
+    return window_corr
+
+
+def compute_corrections(traj: Trajectory, options: RenderOptions,
+                        device="cpu") -> np.ndarray:
+    """(T, 3, 3) float32 per-frame warp rotations."""
+    measured = torch.from_numpy(traj.rotations()).to(device)
+    t = measured.shape[0]
+    if t == 0:
+        return np.zeros((0, 3, 3), np.float32)
+    radius = (min(options.stabilise_radius, max(t - 1, 1))
+              if options.stabilise == "smooth" else 0)
+    fn = make_window_corrections(radius, options)
+    window = measured
+    if radius:
+        window = torch.cat([measured[:1].expand(radius, 3, 3), measured,
+                            measured[-1:].expand(radius, 3, 3)])
+    return fn(window).cpu().numpy()
+
+
+def max_rotation_deg(rotations: np.ndarray) -> float:
+    """Largest rotation angle (degrees) in a stack of rotation matrices."""
+    if rotations.shape[0] == 0:
+        return 0.0
+    tr = np.einsum("tii->t", np.asarray(rotations, np.float64))
+    cos = np.clip((tr - 1.0) / 2.0, -1.0, 1.0)
+    return float(np.degrees(np.arccos(cos).max()))
+
+
+class FrameWarper:
+    """Batched YUV 4:2:0 warp between a fisheye input and a rectilinear
+    output camera (kernel K1 on CUDA tensors)."""
+
+    def __init__(self, in_cam: Camera, out_cam: Camera):
+        self.in_cam = in_cam
+        self.out_cam = out_cam
+        self.out_w = out_cam.width - out_cam.width % 2
+        self.out_h = out_cam.height - out_cam.height % 2
+        self.in_half = scaled_camera(in_cam, 0.5)
+        self.out_half = scaled_camera(out_cam, 0.5)
+
+    def warp_yuv_batch(self, ys, us, vs, rotations: torch.Tensor):
+        """Per-frame plane sequences + (T, 3, 3) rotations -> list of T
+        uint8 (y, u, v) triples."""
+        wy, wu, wv = warp_yuv_batch(
+            torch.stack(list(ys)), torch.stack(list(us)), torch.stack(list(vs)),
+            rotations, self.out_cam, self.in_cam, self.out_half, self.in_half,
+            (self.out_h, self.out_w))
+        return list(zip(wy, wu, wv))
+
+
+def encode(source: str, dest: Optional[str], traj: Trajectory,
+           options: RenderOptions, profiler: Optional[StageProfiler] = None,
+           device="cuda") -> VideoMeta:
+    """Smooth + warp + write. Returns the output metadata."""
+    prof = profiler or StageProfiler()
+    dev = torch.device(device)
+    reader, meta, first, last = open_trimmed(source, options, dev)
+    in_cam, out_cam = build_cameras(meta, options)
+    corrections = compute_corrections(traj, options, dev)
+    warper = FrameWarper(in_cam, out_cam)
+    out_meta = VideoMeta(width=warper.out_w, height=warper.out_h,
+                         fps=output_fps(options, meta),
+                         num_frames=traj.num_frames)
+    sink = open_writer(None if options.no_output else dest, out_meta,
+                       encoder=options.encoder)
+    _batched_encode_loop(reader, sink, corrections, warper.warp_yuv_batch,
+                         options, prof, first, last, traj.num_frames, dev)
+    return out_meta
+
+
+def _batched_encode_loop(reader, sink, corrections, warp_batch_fn, options,
+                         prof, first, last, total, device):
+    """Device-batched encode: prefetched frames, per-batch rotation stacks
+    uploaded up front, the tail padded with its last frame (padded outputs
+    dropped), outputs read back and written on a worker thread."""
+    writer = AsyncFrameWriter(sink)
+    corr = np.asarray(corrections, np.float32)
+    batch = max(1, int(options.warp_batch or DEFAULT_WARP_BATCH))
+    rots_dev = [
+        torch.from_numpy(np.concatenate(
+            [corr[i:i + batch]] + [corr[-1:]] * max(0, i + batch - len(corr))
+        )).to(device)
+        for i in range(0, len(corr), batch)
+    ]
+    pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
+                           depth=options.prefetch_depth, device=device)
+    idx = reader.start_frame - 1
+    t = 0
+    pending = []
+    prog = Progress("encode", total=total)
+
+    def flush():
+        n = len(pending)
+        if not n:
+            return
+        ys, us, vs = zip(*(pending + [pending[-1]] * (batch - n)))
+        rots = rots_dev[(t - n) // batch]
+        with prof.stage("warp"):
+            outs = warp_batch_fn(ys, us, vs, rots)
+        with prof.stage("encode"):
+            for triple in outs[:n]:
+                writer.write(triple)
+        pending.clear()
+        prog.tick(n)
+
+    try:
+        for y, u, v in pre:
+            idx += 1
+            if idx < first:
+                continue
+            if idx >= last or t >= corr.shape[0]:
+                break
+            pending.append((y, u, v))
+            t += 1
+            if len(pending) == batch:
+                flush()
+        flush()
+    except BaseException:
+        pre.close()
+        try:
+            writer.close()
+        except Exception:
+            pass
+        reader.close()
+        raise
+    prog.close()
+    pre.close()
+    with prof.stage("encode"):
+        writer.close()
+    reader.close()
+
+
+def render(source: str, dest: Optional[str],
+           options: Optional[RenderOptions] = None,
+           profiler: Optional[StageProfiler] = None, device="cuda") -> None:
+    """Two-phase render with trajectory checkpoint/resume (``<dest>.traj.npz``)."""
+    options = options or RenderOptions()
+    prof = profiler or StageProfiler()
+    check_ported(options)
+    upsample_factor(options.upsample)
+    needs_motion = options.stabilise != "none"
+    tpath = trajectory_path(dest) if dest else None
+    if needs_motion and not options.encode_only:
+        traj = analyse(source, options, prof, device=device)
+        if tpath:
+            traj.save(tpath)
+    elif needs_motion:
+        if not (tpath and os.path.exists(tpath)):
+            raise FileNotFoundError(
+                f"--encode-only but no trajectory at {tpath}; run analyse first")
+        traj = Trajectory.load(tpath)
+    else:
+        reader = open_reader(source, device="cpu")
+        meta = reader.meta
+        reader.close()
+        first, last = _frame_range(meta, options)
+        n = (last - first) if meta.num_frames else 0
+        traj = Trajectory(params=np.zeros((max(n, 0), KIND_DIMS["so3"])),
+                          kind="so3", fps=meta.fps, width=meta.width,
+                          height=meta.height, source=source)
+    if not options.analyse_only:
+        encode(source, dest, traj, options, prof, device=device)
+    if options.verbose:
+        print(prof.report())

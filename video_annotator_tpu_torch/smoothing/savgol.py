@@ -1,0 +1,36 @@
+"""Savitzky-Golay smoothing weights and the entrywise trajectory filter.
+
+Port of ``video_annotator_tpu/smoothing/savgol.py`` (``savgol_weights``,
+``sg_conv``): the least-squares polynomial-fit weights over a centred
+window, applied to each of the 9 rotation-matrix entries of an already
+replicate-padded trajectory. The convolution is a sliding-window sum of
+elementwise products (no cuDNN, hence no TF32).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+def savgol_weights(radius: int, order: int = 2, pos: int = 0,
+                   deriv: int = 0) -> np.ndarray:
+    """SG kernel over [-radius, radius] evaluated at ``pos``; (2r+1,)
+    float32, index 0 = t - radius."""
+    t = np.arange(-radius, radius + 1, dtype=np.float64)
+    A = np.stack([t ** k for k in range(order + 1)], axis=1)
+    e = np.zeros(order + 1)
+    for k in range(deriv, order + 1):
+        e[k] = (math.factorial(k) / math.factorial(k - deriv)) * (
+            float(pos) ** (k - deriv))
+    return (e @ np.linalg.pinv(A)).astype(np.float32)
+
+
+def sg_conv(padded: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(T + 2r, K) replicate-padded block, (2r + 1,) weights -> (T, K):
+    ``out[t] = sum_j w[j] padded[t + j]`` (cross-correlation, like XLA's
+    convolution)."""
+    windows = padded.unfold(0, w.shape[0], 1)  # (T, K, 2r + 1)
+    return (windows * w.to(padded.device)).sum(dim=-1)
