@@ -192,8 +192,9 @@ def test_tracking_policies_match_jax():
 def test_analysis_mode_resolution():
     o = trender.RenderOptions()
     assert trender.resolve_analysis_mode(o, "cuda") == "paired"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender.resolve_analysis_mode(o, "cpu")
+    assert trender.resolve_analysis_mode(o, "cpu") == "tracked"
+    o.analysis_mode = "tracked"
+    assert trender.resolve_analysis_mode(o, "cuda") == "tracked"
     o.analysis_mode = "paired"
     assert trender.resolve_analysis_mode(o, "cpu") == "paired"
     o.analysis_mode = "sideways"

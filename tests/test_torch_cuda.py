@@ -113,6 +113,54 @@ def test_lk_kernel_matches_plain(cuda):
             assert float((a.cpu() - b)[ok].abs().max()) <= 0.01
 
 
+def test_lk_level_frame_kernel_matches_plain(cuda):
+    """K2's per-frame form: prev and next windows from two separately
+    staged frames."""
+    frames = shifted_chunk(cuda, [(0.0, 0.0), (2.25, -1.5)])
+    g = torch.Generator().manual_seed(4)
+    pts = torch.stack([torch.rand(200, generator=g) * 600 + 20,
+                       torch.rand(200, generator=g) * 440 + 20], dim=-1)
+    pts = torch.cat([pts, torch.tensor([[320.0, 9.0], [5.0, 240.0], [630.0, 470.0]])])
+    pts = pts.to(cuda)
+    guess = (torch.randn(pts.shape, generator=g) * 0.5).to(cuda)
+    prev, nxt = (lk_kernel.stage_pyramid(f) for f in frames)
+    for level in (0, 1):
+        pf, pi, ok = lk_kernel.level_args(prev[level], pts / 2 ** level, None, guess)
+        got = lk_kernel.lk_level_frame(prev[level], nxt[level], pf, pi, 8)
+        want = lk_kernel.lk_level_frame(prev[level].cpu(), nxt[level].cpu(), pf.cpu(),
+                                        pi.cpu(), 8)
+        torch.cuda.synchronize()
+        got, want, ok = got.cpu(), want, ok.cpu()
+        gst, wst = (got[:, 2] > 0.5) & ok, (want[:, 2] > 0.5) & ok
+        assert float((gst == wst).float().mean()) >= 0.99
+        both = gst & wst
+        assert int(both.sum()) > 150
+        assert float((got[:, :2] - want[:, :2])[both].abs().max()) <= 0.01
+    before = lk_kernel.LK_LEVEL_FRAME.launches
+    new_pts, status = lk_kernel.pyramidal_lk_packed(prev, nxt, (480, 640), pts,
+                                                    torch.ones(len(pts), dtype=torch.bool,
+                                                               device=cuda))
+    assert lk_kernel.LK_LEVEL_FRAME.launches - before == sum(p is not None for p in prev)
+    flow = (new_pts - pts)[status].median(dim=0).values.cpu()
+    assert torch.allclose(flow, torch.tensor([2.25, -1.5]), atol=0.1)
+
+
+def test_tracked_streaming_render_on_card_matches_cpu(cuda, tmp_path):
+    src = "synthetic://shaky?w=320&h=240&n=12&seed=3"
+    opts = dict(stabilise="smooth", analysis_mode="tracked", streaming=True,
+                smoother="kalman", stabilise_radius=10, warp_batch=4,
+                preset=CameraPreset.GOPRO_H4B_WIDE43_MEASURED)
+    trajs = {}
+    for dev in ("cpu", "cuda"):
+        dest = tmp_path / f"{dev}.y4m"
+        trender.render(src, str(dest), trender.RenderOptions(**opts), device=dev)
+        trajs[dev] = Trajectory.load(str(dest) + ".traj.npz")
+    rel = so3.matmul(torch.from_numpy(trajs["cuda"].rotations()),
+                     so3.transpose(torch.from_numpy(trajs["cpu"].rotations())))
+    assert trajs["cuda"].num_frames == 12
+    assert math.degrees(float(so3.log(rel).norm(dim=-1).max())) <= 0.05
+
+
 def test_render_on_card_matches_cpu(cuda, tmp_path):
     src = "synthetic://shaky?w=640&h=480&n=12&seed=3"
     opts = dict(stabilise="smooth", analysis_mode="paired",

@@ -139,7 +139,7 @@ def test_encode_only_without_trajectory_errors(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("streaming", True), ("smoother", "kalman"), ("filter", "similarity"),
+    ("debug", True), ("crop_rect", "64:48"), ("filter", "similarity"),
     ("interp", "bicubic"), ("projection", "equirect"), ("rolling_shutter", 0.75),
     ("horizon_lock", True), ("gyro", True), ("prefilter", "auto"),
 ])

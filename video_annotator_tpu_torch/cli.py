@@ -199,9 +199,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "~1440p inputs, 0.5 for 4K-class (the reference "
                         "demo's own tracking scale), 0.25 for 8K")
     r.add_argument("--analysis-chunk", type=int, default=16,
-                   help="analyse-phase frames per device dispatch "
-                        "(lax.scan chunk; 1 = per-frame dispatches; "
-                        "identical trajectory either way)")
+                   help="paired mode: frames per batched analyse pass; "
+                        "tracked mode runs frame by frame whatever the "
+                        "chunk (identical trajectory either way)")
     r.add_argument("--analysis-mode", default="auto",
                    choices=["auto", "tracked", "paired"],
                    help="tracked = sequential point-carryover tracker "
@@ -209,8 +209,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "every frame, all adjacent pairs batched into "
                         "one kernel launch per pyramid level (same "
                         "estimator and gates); auto (default) = paired "
-                        "on a GPU (tracked, the CPU choice, is not "
-                        "ported yet)")
+                        "on a GPU, tracked on the CPU")
     r.add_argument("--analysis-detect-level", type=int, default=1,
                    help="paired mode: detect corners this many pyramid "
                         "levels below the tracking resolution (LK "

@@ -1,8 +1,10 @@
 // K2: one Lucas-Kanade pyramid level for every point of every frame pair.
 //
 // Replaces the TPU LK kernel video_annotator_tpu/ops/lk_pallas.py
-// (_make_lk_kernel :73-263, launched for all pairs of a chunk by
-// _lk_level_pallas_pairs :557). Per point:
+// (_make_lk_kernel :73-263) in both of its launches: all pairs of a chunk
+// stacked in one level (_lk_level_pallas_pairs, pallas_call :624; entry
+// vat_lk_level) and one pair of separately staged frames
+// (_lk_level_pallas, pallas_call :366; entry vat_lk_level_frame). Per point:
 //   - a 21x21 template sampled bilinearly at the point from the prev
 //     frame, with a 1-pixel halo, and its Scharr (3,10,3)/32 gradients;
 //   - G = sum [gx gx, gx gy; gx gy, gy gy], gated by min_eig/441 > 1e-4;
@@ -66,7 +68,11 @@ __device__ __forceinline__ int floor_index(float v) {
   return (int)floorf(fminf(fmaxf(v, -1024.0f), 1024.0f));
 }
 
-__global__ void lk_level_kernel(const uint8_t* __restrict__ stack, int pitch,
+// prev/next: the staged levels the prev and next windows are read from
+// (the same stack for the pairs form); pi's rows and columns are relative
+// to them.
+__global__ void lk_level_kernel(const uint8_t* __restrict__ prev_base,
+                                const uint8_t* __restrict__ next_base, int pitch,
                                 const float* __restrict__ pf,
                                 const int* __restrict__ pi,
                                 float* __restrict__ out, int m, int iters) {
@@ -79,8 +85,8 @@ __global__ void lk_level_kernel(const uint8_t* __restrict__ stack, int pitch,
   const float gx0 = pf[i * 6 + 0], gy0 = pf[i * 6 + 1];
   const float ryp = pf[i * 6 + 2], ixp = pf[i * 6 + 3];
   const float ryn = pf[i * 6 + 4], ixn = pf[i * 6 + 5];
-  const Window prev{stack + (size_t)pi[i * 4 + 0] * pitch + pi[i * 4 + 1], pitch};
-  const Window next{stack + (size_t)pi[i * 4 + 2] * pitch + pi[i * 4 + 3], pitch};
+  const Window prev{prev_base + (size_t)pi[i * 4 + 0] * pitch + pi[i * 4 + 1], pitch};
+  const Window next{next_base + (size_t)pi[i * 4 + 2] * pitch + pi[i * 4 + 3], pitch};
 
   // Template rows: rows[k][l] = image at (ryp + k, ixp - 1 + l), bilinear,
   // x blended first (as the TPU kernel's sample_rows), then y.
@@ -168,20 +174,36 @@ __global__ void lk_level_kernel(const uint8_t* __restrict__ stack, int pitch,
   }
 }
 
-}  // namespace
-
-// stack: (rows, pitch) uint8 level stack (all frames' bands).
-// pf: (m, 6) f32 = guess x, guess y, ry prev, ix prev, ry next, ix next.
-// pi: (m, 4) i32 = prev window row, prev window col, next row, next col.
-// out: (m, 3) f32 = flow x, flow y, ok.
-extern "C" int vat_lk_level(const void* stack, int pitch, const void* pf,
-                            const void* pi, void* out, int m, int iters,
-                            void* stream) {
+int launch(const void* prev, const void* next, int pitch, const void* pf,
+           const void* pi, void* out, int m, int iters, void* stream) {
   if (m <= 0) return 0;
   const dim3 block(32 * POINTS_PER_BLOCK);
   const dim3 grid((m + POINTS_PER_BLOCK - 1) / POINTS_PER_BLOCK);
   lk_level_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(stack), pitch, static_cast<const float*>(pf),
-      static_cast<const int*>(pi), static_cast<float*>(out), m, iters);
+      static_cast<const uint8_t*>(prev), static_cast<const uint8_t*>(next), pitch,
+      static_cast<const float*>(pf), static_cast<const int*>(pi),
+      static_cast<float*>(out), m, iters);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// pf: (m, 6) f32 = guess x, guess y, ry prev, ix prev, ry next, ix next.
+// pi: (m, 4) i32 = prev window row, prev window col, next row, next col.
+// out: (m, 3) f32 = flow x, flow y, ok.
+
+// Pairs form. stack: (rows, pitch) uint8 level stack of all frames' bands;
+// pi's rows are absolute rows of the stack.
+extern "C" int vat_lk_level(const void* stack, int pitch, const void* pf,
+                            const void* pi, void* out, int m, int iters,
+                            void* stream) {
+  return launch(stack, stack, pitch, pf, pi, out, m, iters, stream);
+}
+
+// Per-frame form. prev, next: two (rows, pitch) uint8 staged levels of one
+// shape; pi's prev rows index prev, its next rows index next.
+extern "C" int vat_lk_level_frame(const void* prev, const void* next, int pitch,
+                                  const void* pf, const void* pi, void* out, int m,
+                                  int iters, void* stream) {
+  return launch(prev, next, pitch, pf, pi, out, m, iters, stream);
 }

@@ -1,9 +1,15 @@
-"""Pyramidal LK over all adjacent frame pairs of a chunk (kernel K2).
+"""Pyramidal LK over frame pairs (kernel K2), in two forms.
 
-Port of ``video_annotator_tpu/ops/lk_pallas.py``'s batched-pairs path:
-``lk_pack_pyramid_pairs`` (:511), ``_lk_level_pallas_pairs`` (:557) and
-``pyramidal_lk_pallas_pairs`` (:633), with the per-point math of
-``_make_lk_kernel`` (:73-263) in ``csrc/lk.cu``.
+Port of ``video_annotator_tpu/ops/lk_pallas.py``, with the per-point math
+of ``_make_lk_kernel`` (:73-263) in ``csrc/lk.cu``:
+
+- pairs form, all adjacent pairs of a chunk in one launch per level:
+  ``lk_pack_pyramid_pairs`` (:511), ``_lk_level_pallas_pairs`` (:557)
+  and ``pyramidal_lk_pallas_pairs`` (:633);
+- per-frame form, one pair of separately staged pyramids, for the
+  sequential tracker that stages each frame once and carries it:
+  ``lk_pack_pyramid`` (:381), ``_lk_level_pallas`` (:309) and
+  ``pyramidal_lk_pallas_packed`` (:419).
 
 Levels are staged by K3 into (T, H', W') uint8 stacks (rounded half to
 even, padded to 32 rows / 128 columns, 32 slack rows of the last 4-row
@@ -13,8 +19,9 @@ each point's 48 x 256 window in the prev frame (around p) and the next
 frame (around p + guess), whose bounds clamp the Newton drift and clear
 the status exactly where the TPU kernel's once-fetched window ended.
 
-On CPU tensors :func:`lk_level_pairs` runs :func:`lk_level_plain`; on
-CUDA tensors it launches ``csrc/lk.cu`` or raises.
+On CPU tensors :func:`lk_level` and :func:`lk_level_frame` run
+:func:`lk_level_plain`; on CUDA tensors they launch ``csrc/lk.cu`` (entry
+``vat_lk_level`` or ``vat_lk_level_frame``) or raise.
 """
 
 from __future__ import annotations
@@ -50,7 +57,15 @@ LK_LEVEL = cuda_lib.CudaKernel(
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_int, ctypes.c_int],
     source="video_annotator_tpu_torch/csrc/lk.cu",
-    replaces="video_annotator_tpu/ops/lk_pallas.py:557",  # _lk_level_pallas_pairs
+    replaces="video_annotator_tpu/ops/lk_pallas.py:624",  # _lk_level_pallas_pairs
+)
+
+LK_LEVEL_FRAME = cuda_lib.CudaKernel(
+    "lk_level_frame", "vat_lk_level_frame",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int],
+    source="video_annotator_tpu_torch/csrc/lk.cu",
+    replaces="video_annotator_tpu/ops/lk_pallas.py:366",  # _lk_level_pallas
 )
 
 
@@ -100,14 +115,16 @@ def _floor_index(v: torch.Tensor) -> torch.Tensor:
     return torch.floor(v.clamp(-1024.0, 1024.0)).to(torch.int64)
 
 
-def lk_level_plain(stack: torch.Tensor, pf: torch.Tensor, pi: torch.Tensor,
-                   iters: int) -> torch.Tensor:
+def lk_level_plain(prev_stack: torch.Tensor, next_stack: torch.Tensor,
+                   pf: torch.Tensor, pi: torch.Tensor, iters: int) -> torch.Tensor:
     """Plain torch version of ``csrc/lk.cu`` over (M, 6) float / (M, 4) int
-    per-point arguments; returns (M, 3) = (flow x, flow y, ok)."""
+    per-point arguments, prev windows read from ``prev_stack`` and next
+    windows from ``next_stack`` (one stack twice for the pairs form);
+    returns (M, 3) = (flow x, flow y, ok)."""
     gx0, gy0, ryp, ixp, ryn, ixn = pf.unbind(1)
-    prev = _sampler(stack, pi[:, 0], pi[:, 1])
-    nxt = _sampler(stack, pi[:, 2], pi[:, 3])
-    dev = stack.device
+    prev = _sampler(prev_stack, pi[:, 0], pi[:, 1])
+    nxt = _sampler(next_stack, pi[:, 2], pi[:, 3])
+    dev = prev_stack.device
 
     def bilinear_rows(at, ry, ix, nrows, ncols):
         iy = _floor_index(ry)[:, None, None]
@@ -154,25 +171,34 @@ def lk_level_plain(stack: torch.Tensor, pf: torch.Tensor, pi: torch.Tensor,
     return torch.stack([vx, vy, ok.to(torch.float32)], dim=1)
 
 
-def level_args(stack: torch.Tensor, pts: torch.Tensor, band: torch.Tensor,
-               guess: torch.Tensor):
+def level_args(stack: torch.Tensor, pts: torch.Tensor,
+               band: Optional[torch.Tensor], guess: torch.Tensor):
     """Per-point kernel arguments of one level: ``pf`` (M, 6) float32 =
     (guess x, guess y, ry prev, ix prev, ry next, ix next), ``pi`` (M, 4)
-    int32 = absolute stack row and column of the prev and next windows,
-    and the host-side window gate ``ok`` (M,)."""
-    if stack.dim() != 3 or stack.dtype != torch.uint8:
-        raise ValueError("lk stack must be (T, H', W') uint8")
-    _, rows, pitch = stack.shape
+    int32 = row and column of the prev and next windows, and the
+    host-side window gate ``ok`` (M,).
+
+    Pairs form: ``stack`` is a (T, H', W') level stack, point i tracks
+    from band ``band[i]`` to ``band[i] + 1`` and the rows are absolute
+    rows of the stack. Per-frame form: ``band`` is None, ``stack`` one
+    (H', W') staged level (the shape of both frames' levels) and the rows
+    are rows within each level."""
+    if stack.dtype != torch.uint8 or stack.dim() != (2 if band is None else 3):
+        raise ValueError("lk stack must be (T, H', W') uint8, or (H', W') per frame")
+    rows, pitch = stack.shape[-2:]
     if rows % 32 or pitch % 128 or pitch < WCOLS or rows < 4 * DMA_WORDS:
         raise ValueError(f"lk stack {tuple(stack.shape)} is not a staged level")
-    band = band.to(torch.int64)
     oyp, sxp, bwp, ryp, ixp, okp = origins(pts, pitch // 128, rows // 4)
     oyn, sxn, bwn, ryn, ixn, okn = origins(pts + guess, pitch // 128, rows // 4)
+    prev_row0 = next_row0 = 0
+    if band is not None:
+        prev_row0 = band.to(torch.int64) * rows
+        next_row0 = prev_row0 + rows
     pf = torch.stack([guess[:, 0], guess[:, 1], ryp, ixp, ryn, ixn], dim=1)
     pi = torch.stack([
-        band * rows + 4 * (oyp + bwp).to(torch.int64),
+        prev_row0 + 4 * (oyp + bwp).to(torch.int64),
         (sxp * 128).to(torch.int64),
-        (band + 1) * rows + 4 * (oyn + bwn).to(torch.int64),
+        next_row0 + 4 * (oyn + bwn).to(torch.int64),
         (sxn * 128).to(torch.int64),
     ], dim=1).to(torch.int32)
     return pf.to(torch.float32).contiguous(), pi.contiguous(), okp & okn
@@ -184,7 +210,7 @@ def lk_level(stack: torch.Tensor, pf: torch.Tensor, pi: torch.Tensor,
     flow y, ok). The plain version on CPU tensors, ``csrc/lk.cu`` on CUDA
     tensors."""
     if stack.device.type == "cpu":
-        return lk_level_plain(stack, pf, pi, iters)
+        return lk_level_plain(stack, stack, pf, pi, iters)
     cuda_lib.check_cuda(stack)
     stack = stack.contiguous()
     m = pf.shape[0]
@@ -192,6 +218,27 @@ def lk_level(stack: torch.Tensor, pf: torch.Tensor, pi: torch.Tensor,
     cuda_lib.check_operands(stack, pf, pi, out)
     LK_LEVEL.launch(cuda_lib.ptr(stack), stack.shape[-1], cuda_lib.ptr(pf),
                     cuda_lib.ptr(pi), cuda_lib.ptr(out), m, int(iters))
+    return out
+
+
+def lk_level_frame(prev: torch.Tensor, nxt: torch.Tensor, pf: torch.Tensor,
+                   pi: torch.Tensor, iters: int = DEF_ITERS) -> torch.Tensor:
+    """One LK level of one frame pair over :func:`level_args` arguments of
+    the per-frame form: prev windows from the (H', W') staged level
+    ``prev``, next windows from ``nxt``. (M, 3) = (flow x, flow y, ok).
+    The plain version on CPU tensors, ``csrc/lk.cu`` on CUDA tensors."""
+    if prev.shape != nxt.shape or prev.dim() != 2:
+        raise ValueError(f"lk levels {tuple(prev.shape)} / {tuple(nxt.shape)} differ")
+    if prev.device.type == "cpu":
+        return lk_level_plain(prev, nxt, pf, pi, iters)
+    cuda_lib.check_cuda(prev)
+    prev, nxt = prev.contiguous(), nxt.contiguous()
+    m = pf.shape[0]
+    out = torch.empty((m, 3), dtype=torch.float32, device=prev.device)
+    cuda_lib.check_operands(prev, nxt, pf, pi, out)
+    LK_LEVEL_FRAME.launch(cuda_lib.ptr(prev), cuda_lib.ptr(nxt), prev.shape[-1],
+                          cuda_lib.ptr(pf), cuda_lib.ptr(pi), cuda_lib.ptr(out),
+                          m, int(iters))
     return out
 
 
@@ -220,6 +267,24 @@ def stage_pyramid_pairs(frames: torch.Tensor,
     return staged
 
 
+def stage_pyramid(frame: torch.Tensor,
+                  levels: int = DEF_LEVELS) -> Sequence[Optional[torch.Tensor]]:
+    """Staged uint8 pyramid of one (H, W) frame: (H', W') levels with the
+    same padding, slack rows and ``None`` rule as
+    :func:`stage_pyramid_pairs`."""
+    return [None if s is None else s[0]
+            for s in stage_pyramid_pairs(frame[None], levels)]
+
+
+def _in_bounds(pts: torch.Tensor, new_pts: torch.Tensor, h: int, w: int):
+    """Both ends at least half a window inside the image."""
+    half = float(HALF)
+    return ((pts[:, 0] >= half) & (pts[:, 0] < w - half)
+            & (pts[:, 1] >= half) & (pts[:, 1] < h - half)
+            & (new_pts[:, 0] >= half) & (new_pts[:, 0] < w - half)
+            & (new_pts[:, 1] >= half) & (new_pts[:, 1] < h - half))
+
+
 def pyramidal_lk_pairs(staged: Sequence[Optional[torch.Tensor]],
                        img_shape: Tuple[int, int], points: torch.Tensor,
                        valid: torch.Tensor, iters: int = DEF_ITERS):
@@ -245,9 +310,30 @@ def pyramidal_lk_pairs(staged: Sequence[Optional[torch.Tensor]],
         flow = torch.stack([vx, vy], dim=-1) * scale
         status = status & ok
     new_pts = pts + flow
-    half = float(HALF)
-    in_bounds = ((pts[:, 0] >= half) & (pts[:, 0] < w - half)
-                 & (pts[:, 1] >= half) & (pts[:, 1] < h - half)
-                 & (new_pts[:, 0] >= half) & (new_pts[:, 0] < w - half)
-                 & (new_pts[:, 1] >= half) & (new_pts[:, 1] < h - half))
-    return new_pts.reshape(p_, n_, 2), (status & in_bounds).reshape(p_, n_)
+    status = status & _in_bounds(pts, new_pts, h, w)
+    return new_pts.reshape(p_, n_, 2), status.reshape(p_, n_)
+
+
+def pyramidal_lk_packed(staged_prev: Sequence[Optional[torch.Tensor]],
+                        staged_next: Sequence[Optional[torch.Tensor]],
+                        img_shape: Tuple[int, int], points: torch.Tensor,
+                        valid: torch.Tensor, iters: int = DEF_ITERS):
+    """Track (N, 2) level-0 ``points`` from one frame to the next, coarse
+    to fine, over their :func:`stage_pyramid` pyramids (one
+    ``lk_level_frame`` launch per level). Returns ``(new_points (N, 2),
+    status (N,))``."""
+    h, w = img_shape
+    pts = points.to(torch.float32)
+    flow = torch.zeros_like(pts)
+    status = valid
+    for lvl in range(len(staged_prev) - 1, -1, -1):
+        prev, nxt = staged_prev[lvl], staged_next[lvl]
+        if prev is None or nxt is None:
+            continue  # tiny level: keep the coarse guess
+        scale = 2.0 ** lvl
+        pf, pi, ok_windows = level_args(prev, pts / scale, None, flow / scale)
+        out = lk_level_frame(prev, nxt, pf, pi, iters)
+        flow = out[:, :2] * scale
+        status = status & (out[:, 2] > 0.5) & ok_windows
+    new_pts = pts + flow
+    return new_pts, status & _in_bounds(pts, new_pts, h, w)

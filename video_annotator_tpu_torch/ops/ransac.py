@@ -111,3 +111,14 @@ def estimate_rotation(rays_prev: torch.Tensor, rays_curr: torch.Tensor,
     return RotationEstimate(rotation=R,
                             num_inliers=inl.sum(dim=-1).to(torch.int32),
                             inliers=inl)
+
+
+def rotation_with_fallback(estimate: RotationEstimate,
+                           previous_rotation: torch.Tensor,
+                           min_inliers: int = MIN_INLIERS) -> torch.Tensor:
+    """The reference's quality gate: an estimate with fewer than
+    ``min_inliers`` inliers is distrusted and the previous frame-to-frame
+    rotation reused. (B, 3, 3), from (B,) counts and (B or 1, 3, 3)
+    previous rotations."""
+    ok = (estimate.num_inliers >= min_inliers)[:, None, None]
+    return torch.where(ok, estimate.rotation, previous_rotation)

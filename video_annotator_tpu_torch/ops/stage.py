@@ -28,7 +28,7 @@ STAGE = cuda_lib.CudaKernel(
     "stage", "vat_stage_u8",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7,
     source="video_annotator_tpu_torch/csrc/stage.cu",
-    replaces="video_annotator_tpu/ops/warp_pallas.py:1634",  # _pack_call
+    replaces="video_annotator_tpu/ops/warp_pallas.py:1640",  # _pack_call
 )
 
 

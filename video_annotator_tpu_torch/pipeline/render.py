@@ -1,25 +1,31 @@
 """Two-phase render: analyse (motion) then encode (warp), on one device.
 
-Port of the stock path of ``video_annotator_tpu/pipeline/render.py``:
-``render in out --stabilise smooth`` for the rotation family, two-phase,
-with paired analyse, Savitzky-Golay smoothing on SO(3) and the bilinear
-rectilinear warp.
+Port of the rotation family of ``video_annotator_tpu/pipeline/render.py``:
+``render in out --stabilise smooth`` two-phase (here) or single-pass
+(``--streaming``, ``pipeline/streaming.py``), with either analyser,
+Savitzky-Golay or Kalman smoothing on SO(3) and the bilinear rectilinear
+warp.
 
-1. Analyse (:class:`PairTracker`, :func:`analyse`): per chunk of G frames
-   (plus the previous chunk's last), box-downsample the luma to the
-   tracking scale, detect Shi-Tomasi corners one level lower, stage the
-   uint8 LK pyramids (K3), track every adjacent pair in one LK launch per
-   level (K2), estimate each pair's rotation by RANSAC, carry failed pairs
-   over with a last-valid scan and chain the deltas with a prefix product.
+1. Analyse (:func:`analyse`), ``--analysis-mode paired``
+   (:class:`PairTracker`): per chunk of G frames (plus the previous
+   chunk's last), box-downsample the luma to the tracking scale, detect
+   Shi-Tomasi corners one level lower, stage the uint8 LK pyramids (K3),
+   track every adjacent pair in one LK launch per level (K2, pairs form),
+   estimate each pair's rotation by RANSAC, carry failed pairs over with a
+   last-valid scan and chain the deltas with a prefix product.
+   ``--analysis-mode tracked`` (:class:`Tracker`): frame by frame, carry
+   the corners and the previous frame's staged pyramid, track with K2's
+   per-frame form, fall back to the previous delta below the inlier gate,
+   and re-detect corners on key frames.
 2. Corrections (:func:`compute_corrections`): SG-smooth the trajectory's
-   matrix entries, project back onto SO(3), correction = measured .
-   smoothed^T . attitude.
+   matrix entries and project back onto SO(3), or Kalman-smooth its
+   rotation vectors; correction = measured . smoothed^T . attitude.
 3. Encode (:func:`encode`): warp Y, U and V of batches of frames through
    the fused warp (K1) and write them.
 
-Every library entry point takes ``device``. Options outside this slice
-(other families, streaming, gyro, Kalman, horizon lock, rolling shutter,
-other resamplers and projections, prefilter, crop, overlays) raise
+Every library entry point takes ``device``. Options outside the ported
+slices (other families, gyro, horizon lock, rolling shutter, other
+resamplers and projections, prefilter, crop, overlays) raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
@@ -47,12 +53,15 @@ from video_annotator_tpu_torch.io.video import VideoMeta, open_reader, open_writ
 from video_annotator_tpu_torch.ops.corners import detect_corners
 from video_annotator_tpu_torch.ops.lk import DEF_LEVELS, WIN
 from video_annotator_tpu_torch.ops.lk_kernel import (
+    pyramidal_lk_packed,
     pyramidal_lk_pairs,
+    stage_pyramid,
     stage_pyramid_pairs,
 )
 from video_annotator_tpu_torch.ops.ransac import (
     NUM_HYPOTHESES,
     estimate_rotation,
+    rotation_with_fallback,
     sample_pairs,
 )
 from video_annotator_tpu_torch.ops.warp_kernel import warp_yuv_batch
@@ -67,8 +76,10 @@ from video_annotator_tpu_torch.pipeline.trajectory import (
     Trajectory,
     trajectory_path,
 )
+from video_annotator_tpu_torch.smoothing.kalman import smooth_rotations_kalman
 from video_annotator_tpu_torch.smoothing.savgol import savgol_weights, sg_conv
 
+KEY_FRAME_MAX_AGE = 20
 KEY_FRAME_MIN_CORNERS = 150
 MAX_CORNERS = 200
 MIN_INLIERS_FULL = 40
@@ -156,11 +167,9 @@ class RenderOptions:
 # (option, value that this package runs, ROADMAP.md item that ports the rest)
 _UNPORTED = (
     ("filter", ("rotation", "dewobble"), "2D families"),
-    ("streaming", (False,), "streaming"),
-    ("gyro", (False,), "kalman/horizon/gyro/rolling"),
-    ("smoother", ("savgol",), "kalman/horizon/gyro/rolling"),
-    ("horizon_lock", (False,), "kalman/horizon/gyro/rolling"),
-    ("rolling_shutter", (0.0,), "kalman/horizon/gyro/rolling"),
+    ("gyro", (False,), "horizon/gyro/rolling"),
+    ("horizon_lock", (False,), "horizon/gyro/rolling"),
+    ("rolling_shutter", (0.0,), "horizon/gyro/rolling"),
     ("interp", ("bilinear",), "interp/projection/prefilter modes"),
     ("prefilter", ("off",), "interp/projection/prefilter modes"),
     ("projection", ("rect", "flat", "gnomonic"), "interp/projection/prefilter modes"),
@@ -183,21 +192,14 @@ def check_ported(options: RenderOptions) -> None:
 
 
 def resolve_analysis_mode(options, device) -> str:
-    """``auto`` is ``paired`` on a CUDA device. The JAX package picks the
-    sequential ``tracked`` analyser on the CPU, which is not ported yet,
-    so ``auto`` on the CPU raises instead of silently changing mode."""
+    """``auto`` is ``paired`` on a CUDA device (the sequential tracker is
+    launch-bound there) and ``tracked`` on the CPU, as in the JAX
+    package; an explicit mode wins."""
     mode = getattr(options, "analysis_mode", "auto")
     if mode not in ("auto", "tracked", "paired"):
         raise ValueError(f"--analysis-mode must be auto, tracked or paired (got {mode})")
     if mode == "auto":
-        if torch.device(device).type == "cuda":
-            return "paired"
-        mode = "tracked"
-    if mode == "tracked":
-        raise NotImplementedError(
-            "the tracked analyser (--analysis-mode auto on the CPU) is not ported "
-            "to the torch package yet (ROADMAP.md, modules still to port: "
-            "tracked analyse); pass analysis_mode='paired'")
+        return "paired" if torch.device(device).type == "cuda" else "tracked"
     return mode
 
 
@@ -330,13 +332,10 @@ def pair_generator(seed: int, frame_index: int) -> torch.Generator:
     return torch.Generator().manual_seed((seed << 32) + int(frame_index))
 
 
-class PairTracker:
-    """Paired analyse of one chunk (``--analysis-mode paired``).
-
-    Detect fresh corners on every frame, LK-track all adjacent pairs in
-    one K2 launch per pyramid level, RANSAC every pair, carry failed pairs
-    (fewer than the inlier gate) over with the last good delta, and chain
-    the deltas into accumulated rotations."""
+class _Tracking:
+    """What both analysers share: the tracking-scale input camera, the
+    RANSAC threshold, the gates of :func:`tracking_gates` and the seeding
+    border at tracking resolution, and the RANSAC samples."""
 
     def __init__(self, meta: VideoMeta, options: RenderOptions, device):
         self.device = torch.device(device)
@@ -345,21 +344,39 @@ class PairTracker:
         self.in_cam = mip_camera(in_cam_native, self.level)
         track_w = self.in_cam.width
         self.threshold = 8.0 / float(in_cam_native.fx)
-        min_distance, self.min_inliers, _ = tracking_gates(track_w)
-        border = tracking_border(track_w, self.in_cam.height)
+        self.min_distance, self.min_inliers, self.min_refresh = tracking_gates(track_w)
+        self.border = tracking_border(track_w, self.in_cam.height)
         self.iters = int(options.analysis_iters)
-        self.detect_level = max(0, int(options.analysis_detect_level))
-        self.det_md = max(1, min_distance >> self.detect_level)
-        self.det_border = max(4, -(-border // (1 << self.detect_level)))
-        self.det_scale = float(1 << self.detect_level)
 
-    def hypothesis_pairs(self, status: torch.Tensor, offset: int) -> torch.Tensor:
-        uniforms = torch.stack([
+    def hypothesis_pairs(self, status: torch.Tensor, first_index: int) -> torch.Tensor:
+        """(P, H, 2) RANSAC samples among the tracked points of (P, N)
+        ``status``, row p drawn from the generator of pair ``first_index +
+        p``; the uniforms are drawn on the host and uploaded without a
+        sync."""
+        u = torch.stack([
             torch.rand((NUM_HYPOTHESES, 2),
-                       generator=pair_generator(RANSAC_SEED, offset + i))
+                       generator=pair_generator(RANSAC_SEED, first_index + i))
             for i in range(status.shape[0])
-        ]).to(status.device)
-        return sample_pairs(status, uniforms)
+        ])
+        if status.is_cuda:
+            u = u.pin_memory().to(status.device, non_blocking=True)
+        return sample_pairs(status, u)
+
+
+class PairTracker(_Tracking):
+    """Paired analyse of one chunk (``--analysis-mode paired``).
+
+    Detect fresh corners on every frame, LK-track all adjacent pairs in
+    one K2 launch per pyramid level, RANSAC every pair, carry failed pairs
+    (fewer than the inlier gate) over with the last good delta, and chain
+    the deltas into accumulated rotations."""
+
+    def __init__(self, meta: VideoMeta, options: RenderOptions, device):
+        super().__init__(meta, options, device)
+        self.detect_level = max(0, int(options.analysis_detect_level))
+        self.det_md = max(1, self.min_distance >> self.detect_level)
+        self.det_border = max(4, -(-self.border // (1 << self.detect_level)))
+        self.det_scale = float(1 << self.detect_level)
 
     def __call__(self, r_base: torch.Tensor, prev_delta: torch.Tensor,
                  offset: int, frames: torch.Tensor):
@@ -398,14 +415,116 @@ class PairTracker:
         return rs[-1], deltas[-1], rs
 
 
+class Tracker(_Tracking):
+    """Sequential tracked analyse (``--analysis-mode tracked``), the
+    counterpart of the JAX package's ``_make_tracker``: corners carry over
+    from frame to frame and are re-detected on key frames, as in the
+    reference's per-frame loop.
+
+    Each frame is box-downsampled to the tracking scale and its pyramid
+    staged once (K3); the pyramid is carried as the next step's previous
+    frame. Per step: K2's per-frame form over the two staged pyramids,
+    RANSAC on the unit rays, the inlier-gated fallback to the previous
+    delta, and ``R_t = orthonormalize(delta . R_{t-1})``.
+
+    The key-frame rule of the JAX package's ``lax.cond`` (re-detect when
+    the key frame is ``KEY_FRAME_MAX_AGE`` frames old or fewer than
+    ``min_refresh`` points survived) runs on the host here: the step reads
+    ``status.sum()`` once, one device sync per frame except on age-refresh
+    frames (counted in ``host_syncs``). The alternative, detecting on
+    every frame and selecting on the device, costs a full-frame detection
+    per frame instead.
+
+    RANSAC draws from :func:`pair_generator` of the pair's index, the
+    paired path's convention, so the trajectory depends neither on
+    ``--analysis-chunk`` nor on the device.
+
+    ``profiler`` times the parts of each step on the host clock (spans
+    ``stage``, ``lk``, ``ransac``, ``chain`` and ``key frame``); on a card
+    the spans measure enqueueing, except ``key frame``, whose status read
+    waits for the device."""
+
+    def __init__(self, meta: VideoMeta, options: RenderOptions, device,
+                 profiler: Optional[StageProfiler] = None):
+        super().__init__(meta, options, device)
+        self.profiler = profiler or StageProfiler()
+        self.host_syncs = 0
+        self._carry = None
+
+    def _gray(self, frame: torch.Tensor) -> torch.Tensor:
+        return box_downsample(frame.to(torch.float32), self.level)
+
+    def _detect(self, gray: torch.Tensor):
+        return detect_corners(gray, max_corners=MAX_CORNERS,
+                              min_distance=self.min_distance, border=self.border)
+
+    def detect(self, frame: torch.Tensor):
+        """(H, W) frame -> ``(pts, valid, state)``: corners at tracking
+        resolution and the carry ``(gray, staged pyramid)``."""
+        gray = self._gray(frame)
+        pts, valid = self._detect(gray)
+        return pts, valid, (gray, stage_pyramid(gray))
+
+    def step(self, state, frame: torch.Tensor, pts: torch.Tensor,
+             valid: torch.Tensor, prev_delta: torch.Tensor, r_acc: torch.Tensor,
+             frame_index: int, age: int):
+        """Track ``pts`` from the frame of ``state`` into ``frame``.
+
+        ``frame_index`` counts the pair (0 for the first frame pair),
+        ``age`` the frames since the last key frame. Returns ``(pts,
+        valid, delta, r, state)`` for the next step."""
+        span = self.profiler.stage
+        with span("stage"):
+            gray = self._gray(frame)
+            staged = stage_pyramid(gray)
+        with span("lk"):
+            new_pts, status = pyramidal_lk_packed(
+                state[1], staged, tuple(gray.shape), pts, valid, self.iters)
+        with span("ransac"):
+            est = estimate_rotation(
+                self.in_cam.unproject_unit(pts)[None],
+                self.in_cam.unproject_unit(new_pts)[None], status[None],
+                threshold_rad=self.threshold,
+                pairs=self.hypothesis_pairs(status[None], frame_index))
+        with span("chain"):
+            delta = rotation_with_fallback(est, prev_delta[None], self.min_inliers)[0]
+            r = so3.orthonormalize(so3.matmul(delta, r_acc))
+        with span("key frame"):
+            refresh = age >= KEY_FRAME_MAX_AGE
+            if not refresh:
+                self.host_syncs += 1
+                refresh = int(status.sum()) < self.min_refresh
+            if refresh:
+                new_pts, status = self._detect(gray)
+        return new_pts, status, delta, r, (gray, staged)
+
+    def push(self, frame: torch.Tensor) -> torch.Tensor:
+        """Feed the next frame; returns its accumulated (3, 3) rotation
+        (the identity for the first frame)."""
+        if self._carry is None:
+            pts, valid, state = self.detect(frame)
+            eye = torch.eye(3, dtype=torch.float32, device=self.device)
+            self._carry = (state, pts, valid, eye, eye, 0, 0)
+            return eye
+        state, pts, valid, delta, r, age, n = self._carry
+        pts, valid, delta, r, state = self.step(state, frame, pts, valid,
+                                                delta, r, n, age)
+        age = 0 if age >= KEY_FRAME_MAX_AGE else age + 1
+        self._carry = (state, pts, valid, delta, r, age, n + 1)
+        return r
+
+
 def analyse(source: str, options: RenderOptions,
             profiler: Optional[StageProfiler] = None, device="cuda") -> Trajectory:
-    """Per-frame accumulated camera rotations of ``source``."""
+    """Per-frame accumulated camera rotations of ``source``.
+
+    Paired mode tracks chunks of ``--analysis-chunk`` frames; tracked mode
+    runs frame by frame whatever the chunk (the JAX package's chunked scan
+    and per-frame steps give the same trajectory)."""
     prof = profiler or StageProfiler()
-    resolve_analysis_mode(options, device)
+    mode = resolve_analysis_mode(options, device)
     dev = torch.device(device)
     reader, meta, first, last = open_trimmed(source, options, dev)
-    tracker = PairTracker(meta, options, dev)
     chunk_n = max(1, int(options.analysis_chunk))
     eye = torch.eye(3, dtype=torch.float32, device=dev)
     r_base, prev_delta = eye, eye
@@ -413,6 +532,10 @@ def analyse(source: str, options: RenderOptions,
     prev_frame = None
     pending: list = []
     emitted = 0
+    if mode == "tracked":
+        tracker = Tracker(meta, options, dev)
+    else:
+        pair_tracker = PairTracker(meta, options, dev)
 
     def flush_chunk():
         """Pad the tail by repeating its last frame; padded outputs drop."""
@@ -423,8 +546,8 @@ def analyse(source: str, options: RenderOptions,
         frames = [prev_frame] + pending + [pending[-1]] * (chunk_n - k)
         prev_frame = pending[-1]
         pending.clear()
-        r_base, prev_delta, rs = tracker(r_base, prev_delta, emitted,
-                                         torch.stack(frames))
+        r_base, prev_delta, rs = pair_tracker(r_base, prev_delta, emitted,
+                                              torch.stack(frames))
         emitted += k
         r_list.append(rs[:k])
 
@@ -439,7 +562,10 @@ def analyse(source: str, options: RenderOptions,
                 continue
             if idx >= last:
                 break
-            if prev_frame is None:
+            if mode == "tracked":
+                with prof.stage("track"):
+                    r_list.append(tracker.push(y)[None])
+            elif prev_frame is None:
                 prev_frame = y
                 r_list.append(r_base[None])
             else:
@@ -481,17 +607,28 @@ def _lock_and_attitude(measured: torch.Tensor, virtual: torch.Tensor,
     return so3.matmul(corr, attitude[None])
 
 
+def _kalman_virtual(measured: torch.Tensor) -> torch.Tensor:
+    """Kalman-smoothed rotations of a (T, 3, 3) stack. The filter is a
+    chain of 2x2 products per frame, so it runs on the host and only the
+    T x 3 x 3 result goes back to the stack's device."""
+    return smooth_rotations_kalman(measured.cpu()).to(measured.device)
+
+
 def make_window_corrections(radius: int, options: RenderOptions):
-    """(B + 2 radius, 3, 3) measured window -> (B, 3, 3) corrections for the
-    none / fixed / smooth (savgol) modes; radius 0 for none and fixed."""
+    """(B + 2 radius, 3, 3) measured window -> (B, 3, 3) corrections;
+    radius 0 for none and fixed.
+
+    The two-phase path calls it with the whole replicate-padded
+    trajectory, the streaming path per emitted batch with clamp-replicated
+    neighbours, so the two cannot diverge. ``--smoother kalman`` is the
+    fixed-lag form here: the filter runs forward over the whole window
+    (the ``radius`` past frames are its burn-in) and RTS backward from the
+    window's end, so each frame is smoothed with ``radius`` frames of
+    future."""
     if options.stabilise not in ("none", "fixed", "smooth"):
         raise ValueError(f"unknown stabilise mode {options.stabilise!r}")
     if options.smoother not in ("savgol", "kalman"):
         raise ValueError(f"unknown smoother {options.smoother!r}")
-    if options.smoother == "kalman" and options.stabilise == "smooth":
-        raise NotImplementedError(
-            "--smoother kalman is not ported to the torch package yet "
-            "(ROADMAP.md, modules still to port: kalman/horizon/gyro/rolling)")
     w = torch.from_numpy(savgol_weights(radius, order=2))
 
     def window_corr(window: torch.Tensor) -> torch.Tensor:
@@ -501,6 +638,8 @@ def make_window_corrections(radius: int, options: RenderOptions):
         elif options.stabilise == "fixed":
             virtual = torch.eye(3, dtype=window.dtype,
                                 device=window.device).expand(measured.shape)
+        elif options.smoother == "kalman":
+            virtual = _kalman_virtual(window)[radius: window.shape[0] - radius]
         else:
             sm = sg_conv(window.reshape(-1, 9), w)
             virtual = so3.project(sm.reshape(-1, 3, 3))
@@ -510,12 +649,16 @@ def make_window_corrections(radius: int, options: RenderOptions):
 
 
 def compute_corrections(traj: Trajectory, options: RenderOptions,
-                        device="cpu") -> np.ndarray:
+                        device="cuda") -> np.ndarray:
     """(T, 3, 3) float32 per-frame warp rotations."""
     measured = torch.from_numpy(traj.rotations()).to(device)
     t = measured.shape[0]
     if t == 0:
         return np.zeros((0, 3, 3), np.float32)
+    if options.stabilise == "smooth" and options.smoother == "kalman":
+        # The global smoother: forward filter and RTS over the whole clip.
+        virtual = _kalman_virtual(measured)
+        return _lock_and_attitude(measured, virtual, options).cpu().numpy()
     radius = (min(options.stabilise_radius, max(t - 1, 1))
               if options.stabilise == "smooth" else 0)
     fn = make_window_corrections(radius, options)
@@ -642,11 +785,19 @@ def _batched_encode_loop(reader, sink, corrections, warp_batch_fn, options,
 def render(source: str, dest: Optional[str],
            options: Optional[RenderOptions] = None,
            profiler: Optional[StageProfiler] = None, device="cuda") -> None:
-    """Two-phase render with trajectory checkpoint/resume (``<dest>.traj.npz``)."""
+    """Two-phase render with trajectory checkpoint/resume (``<dest>.traj.npz``),
+    or the single-pass ``--streaming`` render."""
     options = options or RenderOptions()
     prof = profiler or StageProfiler()
     check_ported(options)
     upsample_factor(options.upsample)
+    if options.streaming:
+        from video_annotator_tpu_torch.pipeline.streaming import render_streaming
+
+        render_streaming(source, dest, options, prof, device=device)
+        if options.verbose:
+            print(prof.report())
+        return
     needs_motion = options.stabilise != "none"
     tpath = trajectory_path(dest) if dest else None
     if needs_motion and not options.encode_only:

@@ -1,0 +1,200 @@
+"""Single-pass streaming render: decode once, bounded-lookahead smoothing.
+
+Port of ``video_annotator_tpu/pipeline/streaming.py``. Frames and their
+measured rotations queue in a lookahead ring until ``radius`` future
+frames exist; each batch of ``--warp-batch`` frames is then smoothed with
+:func:`make_window_corrections` over a clamp-replicated window, warped
+(K1) and written as it leaves the ring. At EOF the rest of the ring
+smooths against the replicated last rotation. The windows and the
+replicate padding are those of the two-phase ``compute_corrections``, so
+the output equals the two-phase render's (within one count: that path
+re-exponentiates the saved rotation vectors). The radius shrinks like
+the two-phase one for clips shorter than the window, decided at the first
+emission.
+
+``--analysis-mode paired`` tracks inside the ring: arriving frames buffer
+into groups of ``--analysis-chunk``, each group tracked in one batched
+pass keyed by the global pair index, so the trajectory is the two-phase
+paired analyse's. ``tracked`` runs :class:`Tracker` frame by frame.
+
+The ring holds ``radius + warp_batch`` decoded YUV frames on the device
+(about 17 MB a frame at 3840x2880). The JAX package's check of each
+batch's correction against the warp kernel's window budget is dropped:
+K1 reads the whole source plane and has no window to overflow.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from video_annotator_tpu_torch import so3
+from video_annotator_tpu_torch.io.prefetch import AsyncFrameWriter, DevicePrefetcher
+from video_annotator_tpu_torch.io.video import VideoMeta, open_writer
+from video_annotator_tpu_torch.pipeline.profiler import Progress, StageProfiler
+from video_annotator_tpu_torch.pipeline.render import (
+    DEFAULT_WARP_BATCH,
+    FrameWarper,
+    PairTracker,
+    RenderOptions,
+    Tracker,
+    build_cameras,
+    check_ported,
+    make_window_corrections,
+    open_trimmed,
+    output_fps,
+    resolve_analysis_mode,
+)
+from video_annotator_tpu_torch.pipeline.trajectory import Trajectory, trajectory_path
+
+# The Kalman filter's memory is about (r_noise / q_noise) ** (1/4) = 10
+# frames: a fixed-lag window shorter than that would seam at batch edges.
+KALMAN_MIN_RADIUS = 10
+
+
+def render_streaming(source: str, dest: Optional[str],
+                     options: Optional[RenderOptions] = None,
+                     profiler: Optional[StageProfiler] = None,
+                     device="cuda") -> VideoMeta:
+    """One-pass track + smooth + warp + write with a lookahead window."""
+    options = options or RenderOptions()
+    prof = profiler or StageProfiler()
+    check_ported(options)
+    if options.analyse_only or options.encode_only:
+        raise ValueError("--streaming is single-pass; drop -a/-c")
+    if options.stabilise == "smooth" and options.smoother not in ("savgol", "kalman"):
+        raise ValueError(f"unknown smoother {options.smoother!r} for --streaming")
+    if (options.stabilise == "smooth" and options.smoother == "kalman"
+            and options.stabilise_radius < KALMAN_MIN_RADIUS):
+        raise ValueError(
+            f"--streaming --smoother kalman needs --stabilise-radius >= "
+            f"{KALMAN_MIN_RADIUS} (the fixed-lag window must cover the "
+            f"constant-velocity filter's ~10-frame memory; below it the "
+            f"smoother would seam at batch boundaries) -- use --smoother "
+            f"savgol for shorter lookahead or the two-phase path for the "
+            f"global RTS")
+    mode = resolve_analysis_mode(options, device)
+    dev = torch.device(device)
+    reader, meta, first, last = open_trimmed(source, options, dev)
+    needs_motion = options.stabilise != "none"
+    pair_tracker = tracker = None
+    if needs_motion and mode == "paired":
+        pair_tracker = PairTracker(meta, options, dev)
+    elif needs_motion:
+        tracker = Tracker(meta, options, dev)
+    in_cam, out_cam = build_cameras(meta, options)
+    warper = FrameWarper(in_cam, out_cam)
+    n_expect = (last - first) if meta.num_frames else 0
+    out_meta = VideoMeta(width=warper.out_w, height=warper.out_h,
+                         fps=output_fps(options, meta), num_frames=n_expect)
+    writer = AsyncFrameWriter(open_writer(None if options.no_output else dest,
+                                          out_meta, encoder=options.encoder))
+    batch = max(1, int(options.warp_batch or DEFAULT_WARP_BATCH))
+    want_radius = options.stabilise_radius if options.stabilise == "smooth" else 0
+
+    frames: deque = deque()  # (y, u, v) device triples awaiting emission
+    rots: list = []  # (3, 3) measured rotations, one per tracked frame
+    emitted = 0
+    batch_corr = None
+    radius_eff = 0
+    eye = torch.eye(3, dtype=torch.float32, device=dev)
+    r_acc, prev_delta = eye, eye
+    chunk_n = max(1, int(options.analysis_chunk))
+    pend_pairs: list = []
+    prev_pair = None
+
+    def flush_pairs():
+        """Track the buffered group in one pass (the tail, only at EOF,
+        pads with its last frame; padded rotations are dropped)."""
+        nonlocal prev_pair, r_acc, prev_delta
+        k = len(pend_pairs)
+        if not k:
+            return
+        stack = [prev_pair] + pend_pairs + [pend_pairs[-1]] * (chunk_n - k)
+        prev_pair = pend_pairs[-1]
+        pend_pairs.clear()
+        r_acc, prev_delta, rs = pair_tracker(r_acc, prev_delta, len(rots) - 1,
+                                             torch.stack(stack))
+        rots.extend(rs[:k])
+
+    def emit(n: int):
+        """Warp and write frames [emitted, emitted + n), n <= batch."""
+        nonlocal emitted, batch_corr, radius_eff
+        if batch_corr is None:
+            # The first emission comes before EOF only if the clip outlasts
+            # the window, so len(rots) - 1 caps the radius as in two-phase.
+            if options.stabilise == "smooth":
+                radius_eff = min(want_radius, max(len(rots) - 1, 1))
+            batch_corr = make_window_corrections(radius_eff, options)
+        t0 = emitted
+        last_i = len(rots) - 1
+        window = torch.stack([rots[min(max(k, 0), last_i)]
+                              for k in range(t0 - radius_eff, t0 + batch + radius_eff)])
+        with prof.stage("smooth"):
+            corr = batch_corr(window)
+        ys, us, vs = zip(*([frames[i] for i in range(n)] + [frames[n - 1]] * (batch - n)))
+        with prof.stage("warp"):
+            outs = warper.warp_yuv_batch(ys, us, vs, corr)
+        with prof.stage("encode"):
+            for triple in outs[:n]:
+                writer.write(triple)
+        for _ in range(n):
+            frames.popleft()
+        emitted += n
+        prog.tick(n)
+
+    pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
+                           depth=options.prefetch_depth, device=dev)
+    prog = Progress("render", total=n_expect or None)
+    idx = reader.start_frame - 1
+    try:
+        for y, u, v in pre:
+            idx += 1
+            if idx < first:
+                continue
+            if idx >= last:
+                break
+            frames.append((y, u, v))
+            with prof.stage("track"):
+                if pair_tracker is not None and prev_pair is None:
+                    prev_pair = y
+                    rots.append(r_acc)
+                elif pair_tracker is not None:
+                    pend_pairs.append(y)
+                    if len(pend_pairs) >= chunk_n:
+                        flush_pairs()
+                elif tracker is not None:
+                    rots.append(tracker.push(y))
+                else:
+                    rots.append(eye)
+            # Emit every batch whose full lookahead window is present.
+            while len(rots) - want_radius - emitted >= batch:
+                emit(batch)
+        pre.close()
+        with prof.stage("track"):
+            flush_pairs()
+        while emitted < len(rots):
+            emit(min(batch, len(rots) - emitted))
+    except BaseException:
+        pre.close()
+        try:
+            writer.close()
+        except Exception:
+            pass
+        reader.close()
+        raise
+    prog.close()
+    with prof.stage("encode"):
+        writer.close()
+    reader.close()
+
+    # The trajectory checkpoint, so a later --encode-only can reuse this
+    # pass's analysis; an identity trajectory (stabilise none) is not saved.
+    if dest and rots and needs_motion:
+        rotvecs = so3.log(torch.stack(rots)).cpu().numpy().astype(np.float64)
+        Trajectory(params=rotvecs, kind="so3", fps=meta.fps, width=meta.width,
+                   height=meta.height, source=source).save(trajectory_path(dest))
+    return out_meta
