@@ -12,12 +12,16 @@ the last line is printed):
    ``sm_90a`` (build seconds and the ``-Xptxas -v`` report).
 2. Each kernel against its plain PyTorch version on the same card inputs
    at the main paths' shapes, both timed with CUDA events, beside the
-   kernel's bound: K1 on a 4K warp batch; K3 and K2's pairs form on one
-   17-frame LK chunk at 1920x1440 with 200 corners per frame; K2's
-   per-frame form on one 4K pair box-downsampled to 1920x1440 with the
-   tracker's 200 corners.
-3. Renders through the CLI on a 64-frame 3840x2880 synthetic clip, each
-   with every launch count set to 0 just before it and read just after:
+   kernel's bound: K1 on a 4K warp batch; K1's float mode on one 4K luma
+   plane and on the two chroma planes of one frame; K1's one-frame uint8
+   mode over identity pinhole cameras with a similarity matrix (also held
+   against ``warp_similarity``); K3 and K2's pairs form on one 17-frame LK
+   chunk at 1920x1440 with 200 corners per frame; K2's per-frame form on
+   one 4K pair box-downsampled to 1920x1440 with the tracker's 200
+   corners.
+3. Renders through the CLI on 3840x2880 synthetic clips (64 frames unless
+   stated), each with every launch count set to 0 just before it and read
+   just after:
    a. the stock ``render --stabilise smooth`` (``--analysis-mode auto``,
       which must resolve to paired): every kernel of the path launched,
       64 frames of the expected size, the trajectory within 0.1 deg RMS
@@ -30,11 +34,24 @@ the last line is printed):
       of the ground truth, through K2's per-frame form;
    d. ``--streaming --analysis-mode tracked --smoother kalman
       --stabilise-radius 15``: 64 frames of the expected size, the
-      trajectory within 1e-5 rad of (c).
+      trajectory within 1e-5 rad of (c);
+   e. ``--filter vidstab --stabilise smooth``: 64 frames at the input
+      size, the first, middle and last frames within one count of
+      ``warp_frame_similarity`` on the saved trajectory's corrections;
+   f. ``--filter deshake --stabilise smooth`` (32 frames): the first and
+      last frames within one count of ``warp_frame_deshake`` on the card
+      and the middle frame of the same warp on CPU tensors (this family
+      launches none of the kernels);
+   g. ``--compare none,smooth,vidstab,deshake --no-cell-labels`` (8
+      frames, a 9360x7040 canvas): the canvas size, and every cell of the
+      first and last frames within one count of that cell's plain warp.
+   The deshake analyse and the compare render then run once more under
+   torch.profiler, for the device's busy time and idle share.
 4. Where tracked analyse spends its time at 4K: host wall time per step
    and per span of ``Tracker.step``, then kernel launches and device time
    per step from torch.profiler; and the fixed-lag Kalman smoother of one
-   streaming batch on the host (as the port runs it) and on the card.
+   streaming batch on the host (as the port runs it) and on the card;
+   and the per-frame parts of the 2D families alone on an idle card.
 5. A JSON line of per-kernel results, then the device line.
 """
 
@@ -53,13 +70,17 @@ import numpy as np
 import torch
 
 from video_annotator_tpu_torch import cli, so3
-from video_annotator_tpu_torch.camera import CameraPreset
+from video_annotator_tpu_torch.camera import CameraModel, CameraPreset
 from video_annotator_tpu_torch.io.synthetic import SyntheticSource, render_frame
 from video_annotator_tpu_torch.io.video import open_reader
+from video_annotator_tpu_torch.models import deshake, similarity
 from video_annotator_tpu_torch.ops import cuda_lib, lk_kernel, stage, warp_kernel
 from video_annotator_tpu_torch.ops.corners import detect_corners
+from video_annotator_tpu_torch.ops.affine import fit_similarity
 from video_annotator_tpu_torch.ops.lk import build_pyramid
+from video_annotator_tpu_torch.ops.phasecorr import phase_correlate
 from video_annotator_tpu_torch.ops.warp_plain import box_downsample
+from video_annotator_tpu_torch.pipeline import compare
 from video_annotator_tpu_torch.pipeline import render as trender
 from video_annotator_tpu_torch.pipeline import streaming
 from video_annotator_tpu_torch.pipeline.profiler import StageProfiler
@@ -70,6 +91,10 @@ W, H = 3840, 2880
 FRAMES = 64
 PRESET = "gopro_h4b_wide43_measured"
 SOURCE = f"synthetic://shaky?w={W}&h={H}&n={FRAMES}"
+DESHAKE_FRAMES = 32
+COMPARE_FRAMES = 8
+COMPARE_MODES = ("none", "smooth", "vidstab", "deshake")
+F32_ATOL = 1e-3  # float32 sums in another order over values up to 255
 WARP_FRAMES = 4
 LK_CHUNK = 17
 LK_ITERS = 8
@@ -85,15 +110,21 @@ PROFILE_FRAMES = 8
 # and operations / rate for the work of one timed call.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# Operations per item, counted from the kernels' sources (an FMA is 2):
-# K1's map (ray, rotation, perspective divide, fisheye polynomial, atanf
-# and sqrtf as one each, bounds tests) per output pixel, and its bilinear
-# taps and rounding per plane; K3's round and clamp per source element;
+# Operations per item, counted from the kernels' sources (a product and a
+# sum are one each; a division, sqrtf and atanf count as one each).
+# K1's map per output pixel between rectilinear cameras: the ray 4, the
+# 3x3 product 12, the reciprocal 1, a and b 2, sx and sy 4, the bounds
+# tests 5. A fisheye input adds the radius 4, atanf 1, its square 1, the
+# polynomial 6, the distorted angle 3, the scale 3 and two more products
+# in sx and sy. Then the bilinear taps and the rounding per plane; K3's
+# round and clamp per source element;
 # K2's template build (24 x 23 bilinear samples), Scharr gradients and
 # normal-matrix sums over the 441 template elements, and per Newton
 # iteration a bilinear sample, the residual and two sums per element.
-WARP_MAP_OPS = 45
+WARP_MAP_OPS_RECT = 28
+WARP_FISHEYE_OPS = 20
 WARP_TAP_OPS = 20
+WARP_TAP_OPS_F32 = 17  # the float mode neither rounds nor clamps
 STAGE_OPS = 3
 LK_TEMPLATE_OPS = 24 * 23 * 9 + 441 * 26
 LK_ITER_OPS = 441 * 14
@@ -135,6 +166,13 @@ def bound(nbytes: float, ops: float) -> dict:
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def warp_map_ops(in_camera) -> int:
+    """Operations of K1's map per output pixel, by the branch of
+    ``source_coords`` that this input camera takes."""
+    fisheye = in_camera.model == CameraModel.FISHEYE
+    return WARP_MAP_OPS_RECT + (WARP_FISHEYE_OPS if fisheye else 0)
 
 
 def lk_bound(points: int, iters: int) -> dict:
@@ -209,12 +247,92 @@ def phase_warp(dev, results):
             lambda: warp_kernel.warp_planes_u8_plain(src, rots, oc, ic, size, border), 3, 1)
         t, c = src.shape[:2]
         b = bound(src.numel() + rots.numel() * 4 + got.numel(),
-                  t * size[0] * size[1] * (WARP_MAP_OPS + c * WARP_TAP_OPS))
+                  t * size[0] * size[1] * (warp_map_ops(ic) + c * WARP_TAP_OPS))
         log(f"[K1 {name}] {tuple(src.shape)} -> {tuple(got.shape)}: max |diff| "
             f"{max_err} count, equal {equal:.6f}; kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms per {WARP_FRAMES}-frame launch; bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
         check(max_err <= 1 and equal >= MIN_EQUAL, f"{name} disagrees with plain")
+        results[name] = dict(max_abs_err=float(max_err), ms=ms, plain_ms=plain_ms, **b)
+
+
+def source_frame(dev, uri: str, t: int):
+    """Frame ``t`` of a synthetic source as uint8 (y, u, v) tensors."""
+    cfg = SyntheticSource.from_uri(uri).config
+    rot = torch.from_numpy(cfg.rotations()[t]).to(dev)
+    return render_frame(cfg.camera(), rot)
+
+
+def phase_warp_float(dev, results):
+    """K1's float mode, as a rotation cell of the compare grid calls it:
+    one 4K luma plane, then the U and V planes of the frame through one
+    map, stock cameras, a 3 degree rotation."""
+    warper = stock_cameras()
+    y, u, v = (p.to(torch.float32) for p in source_frame(dev, SOURCE, 0))
+    rot = so3.exp(torch.tensor([0.0, 0.0, math.radians(3.0)])).to(dev)
+    oh, ow = warper.out_h, warper.out_w
+    modes = (
+        ("warp_frame_f32", y[None], warper.out_cam, warper.in_cam, (oh, ow), 0.0,
+         lambda s, *a: warp_kernel.warp_frame_f32(s[0], *a)[None]),
+        ("warp_planes_f32", torch.stack([u, v]), warper.out_half, warper.in_half,
+         (oh // 2, ow // 2), 128.0, warp_kernel.warp_planes_f32),
+    )
+    for name, src, oc, ic, size, border, entry in modes:
+        got = entry(src, rot, oc, ic, size, border)
+        want = warp_kernel.warp_planes_f32_plain(src, rot, oc, ic, size, border)
+        torch.cuda.synchronize()
+        max_err = float((got - want).abs().max())
+        ms = cuda_ms(lambda: entry(src, rot, oc, ic, size, border), 20)
+        plain_ms = cuda_ms(
+            lambda: warp_kernel.warp_planes_f32_plain(src, rot, oc, ic, size, border), 3, 1)
+        planes = src.shape[0]
+        b = bound(4 * (src.numel() + rot.numel() + got.numel()),
+                  size[0] * size[1] * (warp_map_ops(ic) + planes * WARP_TAP_OPS_F32))
+        log(f"[K1 {name}] {tuple(src.shape)} f32 -> {tuple(got.shape)} f32: max |diff| "
+            f"{max_err:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per launch; "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        check(got.shape == want.shape and max_err <= F32_ATOL,
+              f"{name} disagrees with plain")
+        results[name] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, **b)
+
+
+def phase_warp_one_frame(dev, results):
+    """K1's uint8 mode with T = 1 over identity pinhole cameras, as a
+    similarity cell of the compare grid calls it: against its plain
+    version and against ``warp_similarity`` rounded, which computes
+    ``s (ca x - sa y) + dx`` directly."""
+    y, u, v = source_frame(dev, SOURCE, 0)
+    params = torch.tensor([37.5, -21.25, 0.02, math.log(1.03)])
+    warper = similarity.SimilarityWarper(W, H)
+    mat = torch.from_numpy(similarity.SimilarityWarper.matrices(params.numpy()[None])[0]).to(dev)
+    want = [warp_kernel.to_u8(p) for p in similarity.warp_frame_similarity(
+        y.to(torch.float32), u.to(torch.float32), v.to(torch.float32), params.to(dev))]
+    got = warper.warp_yuv(y, u, v, mat)
+    modes = (
+        ("warp_yuv_luma", y[None, None], warper.cam, (H, W), 0.0, got[0][None], want[0][None]),
+        ("warp_yuv_chroma", torch.stack([u, v])[None], warper.cam_c, (H // 2, W // 2),
+         128.0, torch.stack(got[1:]), torch.stack(want[1:])),
+    )
+    for name, src, cam, size, border, got_p, want_p in modes:
+        plain = warp_kernel.warp_planes_u8_plain(src, mat[None], cam, cam, size, border)[0]
+        torch.cuda.synchronize()
+        max_err, equal = u8_agreement(got_p, plain)
+        sim_err, sim_equal = u8_agreement(got_p, want_p)
+        # warp_yuv launches luma and chroma together; time each launch alone.
+        ms = cuda_ms(lambda: warp_kernel.warp_planes_u8(
+            src, mat[None], cam, cam, size, border,
+            kernels=warp_kernel.ONE_FRAME_KERNELS), 20)
+        plain_ms = cuda_ms(lambda: warp_kernel.warp_planes_u8_plain(
+            src, mat[None], cam, cam, size, border), 3, 1)
+        b = bound(src.numel() + mat.numel() * 4 + got_p.numel(),
+                  size[0] * size[1] * (warp_map_ops(cam) + src.shape[1] * WARP_TAP_OPS))
+        log(f"[K1 {name}] {tuple(src.shape)} -> {tuple(got_p.shape)}: max |diff| {max_err} "
+            f"count, equal {equal:.6f} against plain; {sim_err} count, equal "
+            f"{sim_equal:.6f} against warp_similarity; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms per launch; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        check(max_err <= 1 and equal >= MIN_EQUAL, f"{name} disagrees with plain")
+        check(sim_err <= 1 and sim_equal >= MIN_EQUAL,
+              f"{name} disagrees with warp_similarity")
         results[name] = dict(max_abs_err=float(max_err), ms=ms, plain_ms=plain_ms, **b)
 
 
@@ -331,34 +449,54 @@ def rms_vs_truth(traj: Trajectory) -> float:
     return math.degrees(float(torch.sqrt((err.norm(dim=-1) ** 2).mean())))
 
 
-def drive(name, argv, label, needs):
+# Entry points a render goes through, timed where they are looked up:
+# (module, attribute, what the time counts as, index of the profiler
+# argument). ``render`` looks the 2D analysers up in their own modules,
+# ``render_compare`` holds its own references to all three analysers.
+TIMED = (
+    (trender, "analyse", "analyse", 2),
+    (trender, "encode", "encode", 4),
+    (trender, "encode_2d", "encode", 4),
+    (streaming, "render_streaming", "streaming", 3),
+    (similarity, "analyse_similarity", "analyse", 2),
+    (deshake, "analyse_deshake", "analyse", 2),
+    (compare, "analyse", "analyse", 2),
+    (compare, "analyse_similarity", "analyse", 2),
+    (compare, "analyse_deshake", "analyse", 2),
+)
+
+
+def drive(name, argv, label, needs, frames=FRAMES, grid=False):
     """One CLI render with every launch count at 0 just before it; check
     that each kernel of ``needs`` launched. Returns the launch counts, the
-    resolved analysis mode and the stage times."""
-    seen = {}
-    orig = (trender.analyse, trender.encode, streaming.render_streaming,
-            trender.resolve_analysis_mode)
+    resolved analysis mode and what the timed entry points returned (by
+    attribute name) and the seconds by what they count as, ``wall`` for
+    the whole render. ``grid``: a compare render, which has no encode
+    entry point: what is left of the render after its analysers (opening
+    the reader, the corrections, the warps, the tiling and the write) is
+    reported as ``rest``."""
+    seen, returned = {}, {}
+    resolve_orig = trender.resolve_analysis_mode
 
-    def timed(key, fn, prof_arg):
+    def timed(attr, key, fn, prof_arg):
         def wrapper(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            seen[key] = time.perf_counter() - t0
+            seen[key] = seen.get(key, 0.0) + time.perf_counter() - t0
             seen["profiler"] = args[prof_arg]
+            returned[attr] = out
             return out
         return wrapper
 
     def resolve(options, device):
-        seen["mode"] = orig[3](options, device)
+        seen["mode"] = resolve_orig(options, device)
         return seen["mode"]
 
-    # analyse(source, options, prof), encode(source, dest, traj, options,
-    # prof), render_streaming(source, dest, options, prof).
-    trender.analyse = timed("analyse", orig[0], 2)
-    trender.encode = timed("encode", orig[1], 4)
-    streaming.render_streaming = timed("streaming", orig[2], 3)
+    originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in TIMED]
+    for mod, attr, key, prof_arg in TIMED:
+        setattr(mod, attr, timed(attr, key, getattr(mod, attr), prof_arg))
     trender.resolve_analysis_mode = streaming.resolve_analysis_mode = resolve
     for k in cuda_lib.KERNELS.values():
         k.launches = 0
@@ -367,9 +505,9 @@ def drive(name, argv, label, needs):
     try:
         rc = cli.main(argv)
     finally:
-        (trender.analyse, trender.encode, streaming.render_streaming,
-         trender.resolve_analysis_mode) = orig
-        streaming.resolve_analysis_mode = orig[3]
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+        trender.resolve_analysis_mode = streaming.resolve_analysis_mode = resolve_orig
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
@@ -380,14 +518,20 @@ def drive(name, argv, label, needs):
     for kname in needs:
         check(launches[kname] > 0, f"[{name}] kernel {kname} was not launched")
     secs, calls = seen["profiler"].all_totals()
-    log(f"[{name}] per-stage host wall time ({label}), warm-up included:")
+    steady, steady_calls = seen["profiler"].totals()
+    log(f"[{name}] per-stage host wall time ({label}), warm-up included; in "
+        f"brackets each stage without its first calls:")
     for stage_name in secs:
-        log(f"    {stage_name}: {secs[stage_name]:.3f} s over {calls[stage_name]} calls")
-    rates = [f"{key} {FRAMES / seen[key]:.2f} fps ({seen[key]:.2f} s)"
-             for key in ("analyse", "encode", "streaming") if key in seen]
-    log(f"[{name}] {label}: {', '.join(rates)}, whole render {wall:.2f} s; peak "
-        f"device memory {peak / 2**30:.2f} GiB")
-    return launches, seen.get("mode")
+        log(f"    {stage_name}: {secs[stage_name]:.3f} s over {calls[stage_name]} calls "
+            f"[{steady[stage_name]:.3f} s over {steady_calls[stage_name]}]")
+    if grid:
+        seen["rest"] = wall - seen["analyse"]
+    rates = [f"{key} {frames / seen[key]:.2f} fps ({seen[key]:.2f} s)"
+             for key in ("analyse", "encode", "streaming", "rest") if key in seen]
+    log(f"[{name}] {label}, {frames} frames: {', '.join(rates)}, whole render "
+        f"{wall:.2f} s; peak device memory {peak / 2**30:.2f} GiB")
+    times = {k: v for k, v in seen.items() if isinstance(v, float)}
+    return launches, seen.get("mode"), returned, dict(times, wall=wall)
 
 
 def check_output_size(name, dest):
@@ -445,24 +589,156 @@ def check_same_frames(name, got_path, want_path, dev):
             check(err <= 1 and equal >= MIN_EQUAL, f"[{name}] frame {i} differs")
 
 
+def written_frames(dest, which):
+    """{index: (y, u, v) uint8 numpy planes} of the frames ``which``."""
+    out = {}
+    reader = open_reader(dest)
+    for i, planes in enumerate(reader):
+        if i in which:
+            out[i] = tuple(np.array(p) for p in planes)
+        if i >= max(which):
+            break
+    reader.close()
+    return out
+
+
+def check_planes(name, t, got, want, dev):
+    """Written uint8 planes against float or uint8 planes on any device."""
+    for plane, g, w in zip("yuv", got, want):
+        w = w if w.dtype == torch.uint8 else warp_kernel.to_u8(w)
+        err, equal = u8_agreement(torch.from_numpy(g).to(dev), w.to(dev))
+        log(f"[{name}] frame {t} plane {plane}: max |diff| {err}, equal {equal:.6f}")
+        check(tuple(g.shape) == tuple(w.shape) and err <= 1 and equal >= MIN_EQUAL,
+              f"[{name}] frame {t} plane {plane} differs from its plain warp")
+
+
+def float_frame(dev, uri, t):
+    return tuple(p.to(torch.float32) for p in source_frame(dev, uri, t))
+
+
+def check_vidstab_frames(dest, dev):
+    """The first, middle and last written frames against
+    ``warp_frame_similarity`` on the saved trajectory's corrections."""
+    meta = open_reader(dest).meta
+    check((meta.width, meta.height, meta.num_frames) == (W, H, FRAMES),
+          "[vidstab] output has the wrong size")
+    traj = Trajectory.load(trajectory_path(dest))
+    check(traj.kind == "similarity" and traj.num_frames == FRAMES,
+          "[vidstab] trajectory has the wrong kind or length")
+    opts = trender.RenderOptions(filter="vidstab", stabilise="smooth")
+    corr = torch.from_numpy(similarity.similarity_corrections(traj, opts)).to(dev)
+    log(f"[vidstab] trajectory ends at dx {traj.params[-1, 0]:.2f} px, dy "
+        f"{traj.params[-1, 1]:.2f} px, angle {traj.params[-1, 2]:.5f} rad")
+    which = (0, FRAMES // 2, FRAMES - 1)
+    for t, got in written_frames(dest, which).items():
+        want = similarity.warp_frame_similarity(*float_frame(dev, SOURCE, t), corr[t])
+        check_planes("vidstab", t, got, want, dev)
+
+
+def check_deshake_frames(dest, src, dev):
+    """The first and last written frames against ``warp_frame_deshake`` on
+    the card, the middle one against the same warp on CPU tensors."""
+    n = DESHAKE_FRAMES
+    meta = open_reader(dest).meta
+    check((meta.width, meta.height, meta.num_frames) == (W, H, n),
+          "[deshake] output has the wrong size")
+    traj = Trajectory.load(trajectory_path(dest))
+    check(traj.kind == "translation" and traj.num_frames == n,
+          "[deshake] trajectory has the wrong kind or length")
+    opts = trender.RenderOptions(filter="deshake", stabilise="smooth")
+    corr = torch.from_numpy(deshake.deshake_corrections(traj, opts))
+    log(f"[deshake] trajectory ends at dx {traj.params[-1, 0]:.2f} px, dy "
+        f"{traj.params[-1, 1]:.2f} px; largest correction "
+        f"{float(corr.abs().max()):.2f} px")
+    for t, got in written_frames(dest, (0, n // 2, n - 1)).items():
+        where = torch.device("cpu") if t == n // 2 else dev
+        planes = tuple(p.to(where) for p in float_frame(dev, src, t))
+        want = deshake.warp_frame_deshake(*planes, corr[t].to(where))
+        check_planes(f"deshake, plain warp on {where.type}", t, got, want, dev)
+
+
+def check_compare_cells(dest, src, returned, dev):
+    """The canvas size, and each cell of the first and last frames against
+    the plain warp of that cell from the trajectories the grid's own
+    analysers returned."""
+    n = COMPARE_FRAMES
+    warper = stock_cameras()
+    ch, cw = warper.out_h, warper.out_w
+    rows, cols = compare.comparison_grid_size(len(COMPARE_MODES))
+    meta = open_reader(dest).meta
+    log(f"[compare] canvas {meta.width}x{meta.height}, {meta.num_frames} frames, "
+        f"{rows}x{cols} cells of {cw}x{ch}")
+    check((meta.width, meta.height, meta.num_frames) == (cw * cols, ch * rows, n)
+          and (rows, cols) == (2, 2), "[compare] canvas has the wrong size")
+
+    def with_stabilise(mode):
+        return trender.RenderOptions(stabilise=mode, preset=CameraPreset(PRESET))
+
+    rot_none = trender.compute_corrections(returned["analyse"], with_stabilise("none"), dev)
+    rot_smooth = trender.compute_corrections(returned["analyse"],
+                                             with_stabilise("smooth"), dev)
+    sim = similarity.similarity_corrections(returned["analyse_similarity"],
+                                            with_stabilise("smooth"))
+    shake = deshake.deshake_corrections(returned["analyse_deshake"],
+                                        with_stabilise("smooth"))
+    check(len(rot_none) == len(rot_smooth) == len(sim) == len(shake) == n,
+          "[compare] a trajectory has the wrong length")
+
+    def rotation_cell(planes, rot):
+        rot = torch.from_numpy(rot).to(dev)
+        y = warp_kernel.warp_planes_f32_plain(
+            planes[0][None], rot, warper.out_cam, warper.in_cam, (ch, cw))[0]
+        uv = warp_kernel.warp_planes_f32_plain(
+            torch.stack(planes[1:]), rot, warper.out_half, warper.in_half,
+            (ch // 2, cw // 2), 128.0)
+        return y, uv[0], uv[1]
+
+    def padded(planes):
+        """An input-size cell centred in the grid cell, black and neutral
+        chroma around it."""
+        out = []
+        for p, scale, fill in zip(planes, (1, 2, 2), (0, 128, 128)):
+            h, w = ch // scale, cw // scale
+            cell = torch.full((h, w), fill, dtype=torch.uint8, device=dev)
+            oy, ox = (h - p.shape[0]) // 2, (w - p.shape[1]) // 2
+            cell[oy:oy + p.shape[0], ox:ox + p.shape[1]] = warp_kernel.to_u8(p)
+            out.append(cell)
+        return out
+
+    for t, canvas in written_frames(dest, (0, n - 1)).items():
+        planes = float_frame(dev, src, t)
+        cells = (
+            rotation_cell(planes, rot_none[t]),
+            rotation_cell(planes, rot_smooth[t]),
+            padded(similarity.warp_frame_similarity(
+                *planes, torch.from_numpy(sim[t]).to(dev))),
+            padded(deshake.warp_frame_deshake(*planes, torch.from_numpy(shake[t]).to(dev))),
+        )
+        for i, (mode, want) in enumerate(zip(COMPARE_MODES, cells)):
+            r, c = divmod(i, cols)
+            got = tuple(p[r * (ch // s):(r + 1) * (ch // s), c * (cw // s):(c + 1) * (cw // s)]
+                        for p, s in zip(canvas, (1, 2, 2)))
+            check_planes(f"compare cell {mode}", t, got, want, dev)
+
+
 def phase_renders(dev, label):
-    """The four renders; returns the launch counts summed over them."""
+    """The seven renders; returns the launch counts summed over them."""
     total = {n: 0 for n in cuda_lib.KERNELS}
     warp_stage = ("warp_luma", "warp_chroma", "stage")
     tmp = tempfile.mkdtemp(prefix="vat_torch_smoke_")
-    base = ["render", SOURCE]
     stock = ["--stabilise", "smooth", "--preset", PRESET]
     tracked = stock + ["--analysis-mode", "tracked"]
 
-    def run(name, dest, flags, needs):
-        launches, mode = drive(name, base + [dest] + flags, label, needs)
+    def run(name, dest, flags, needs, source=SOURCE, **kw):
+        launches, mode, returned, times = drive(
+            name, ["render", source, dest] + flags, label, needs, **kw)
         for n, c in launches.items():
             total[n] += c
-        return mode
+        return mode, returned, times
 
     try:
         two = os.path.join(tmp, "two.y4m")
-        mode = run("render", two, stock, warp_stage + ("lk_level",))
+        mode, _, _ = run("render", two, stock, warp_stage + ("lk_level",))
         check(mode == "paired", "analysis mode did not resolve to paired")
         check_output_size("render", two)
         traj_two = Trajectory.load(trajectory_path(two))
@@ -472,7 +748,8 @@ def phase_renders(dev, label):
         check_frame_vs_plain(two, traj_two, dev)
 
         one = os.path.join(tmp, "one.y4m")
-        mode = run("streaming", one, stock + ["--streaming"], warp_stage + ("lk_level",))
+        mode, _, _ = run("streaming", one, stock + ["--streaming"],
+                      warp_stage + ("lk_level",))
         check(mode == "paired", "streaming analysis mode did not resolve to paired")
         check_output_size("streaming", one)
         check_same_trajectory("streaming", Trajectory.load(trajectory_path(one)), traj_two)
@@ -496,6 +773,37 @@ def phase_renders(dev, label):
         check_same_trajectory("tracked-kalman-streaming",
                               Trajectory.load(trajectory_path(kalman)), traj_tracked)
         os.remove(kalman)
+
+        smooth = ["--stabilise", "smooth"]
+        vid = os.path.join(tmp, "vidstab.y4m")
+        run("vidstab", vid, ["--filter", "vidstab"] + smooth,
+            warp_stage + ("lk_level_frame",))
+        check_vidstab_frames(vid, dev)
+        os.remove(vid)
+
+        src = f"synthetic://shaky?w={W}&h={H}&n={DESHAKE_FRAMES}"
+        shake = os.path.join(tmp, "deshake.y4m")
+        flags = ["--filter", "deshake"] + smooth
+        _, _, times = run("deshake", shake, flags, (), source=src, frames=DESHAKE_FRAMES)
+        check_deshake_frames(shake, src, dev)
+        os.remove(shake)
+        trace_render("deshake analyse", ["render", src, shake, "-a"] + flags,
+                     DESHAKE_FRAMES, times["analyse"])
+
+        src = f"synthetic://shaky?w={W}&h={H}&n={COMPARE_FRAMES}"
+        grid = os.path.join(tmp, "grid.y4m")
+        flags = ["--compare", ",".join(COMPARE_MODES), "--no-cell-labels",
+                 "--preset", PRESET]
+        _, returned, times = run(
+            "compare", grid, flags,
+            ("warp_frame_f32", "warp_planes_f32", "warp_yuv_luma", "warp_yuv_chroma",
+             "stage", "lk_level", "lk_level_frame"),
+            source=src, frames=COMPARE_FRAMES, grid=True)
+        check_compare_cells(grid, src, returned, dev)
+        os.remove(grid)
+        trace_render("compare", ["render", src, grid] + flags, COMPARE_FRAMES,
+                     times["wall"])
+        os.remove(grid)
         return total
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -506,6 +814,48 @@ def _device_us(event) -> float:
         if hasattr(event, attr):
             return float(getattr(event, attr))
     return 0.0
+
+
+def device_events(prof):
+    """The profile's averaged events that ran on the card (kernels and
+    copies). A host operator's entry repeats the device time of the
+    kernels it launched, so a sum over every entry would count those
+    twice."""
+    on_card = torch.autograd.DeviceType.CUDA
+    timed = [e for e in prof.key_averages() if _device_us(e) > 0]
+    events = [e for e in timed if getattr(e, "device_type", None) == on_card]
+    # A build that does not tag its entries: the card's own have no host time.
+    return events or [e for e in timed if e.self_cpu_time_total == 0]
+
+
+def report_device_time(tag, events, n, unit, wall_ms, top=10):
+    """Device busy ms per ``unit`` (a frame, a step) summed over the
+    card's own events, its idle share of the untraced ``wall_ms`` per
+    unit, and the ``top`` events by device time."""
+    busy_ms = sum(_device_us(e) for e in events) / 1e3 / n
+    if busy_ms <= 0:
+        log(f"[{tag}] device busy time: not measured (the profiler reported "
+            f"no device time)")
+        return
+    log(f"[{tag}] device busy {busy_ms:.3f} ms per {unit} under the profiler, "
+        f"{sum(e.count for e in events) / n:.1f} kernels and copies per {unit}; "
+        f"device idle share of the untraced wall ({wall_ms:.3f} ms per {unit}) "
+        f"{max(0.0, 1.0 - busy_ms / wall_ms):.3f}")
+    for e in sorted(events, key=_device_us, reverse=True)[:top]:
+        log(f"    {_device_us(e) / 1e3 / n:8.4f} ms/{unit}  "
+            f"{e.count / n:6.1f}/{unit}  {e.key[:90]}")
+
+
+def trace_render(name, argv, frames, wall_s):
+    """The render ``argv`` once more under torch.profiler: where the
+    device's time goes, against the untraced run's ``wall_s``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+    check(rc == 0, f"[{name}] the traced render returned {rc}")
+    report_device_time(f"{name} profile", device_events(prof), frames, "frame",
+                       wall_s * 1e3 / frames)
 
 
 def phase_tracked_profile(dev, label):
@@ -554,28 +904,49 @@ def phase_kalman_window(dev, label):
     check(err <= 1e-4, "the Kalman smoother differs between host and card")
 
 
+def phase_2d_parts(dev, label):
+    """The per-frame parts of the 2D families alone on an idle card, host
+    wall ms per call, synchronised: what a frame costs without the source
+    and the writer that the renders above share the host and the card
+    with."""
+    frames = source_lumas(dev, 2)
+    level = trender.analysis_level(stock_options(), trender.VideoMeta(W, H, 30, FRAMES))
+    prev, curr = (box_downsample(f.to(torch.float32), level) for f in frames)
+    g = torch.Generator().manual_seed(17)
+    pts = (torch.rand((trender.MAX_CORNERS, 2), generator=g)
+           * torch.tensor([curr.shape[1], curr.shape[0]])).to(dev)
+    moved = pts * 1.001 + torch.tensor([1.5, -0.75], device=dev)
+    valid = torch.ones(len(pts), dtype=torch.bool, device=dev)
+    planes = float_frame(dev, SOURCE, 0)
+    offset = torch.tensor([3.25, -7.5], device=dev)
+    parts = (
+        (f"phase_correlate, one {tuple(curr.shape)} pair",
+         lambda: phase_correlate(curr, prev)),
+        (f"fit_similarity, {len(pts)} points", lambda: fit_similarity(pts, moved, valid)),
+        (f"warp_frame_deshake, one {W}x{H} frame",
+         lambda: deshake.warp_frame_deshake(*planes, offset)),
+        ("its blurred background alone (two banded products)",
+         lambda: deshake.gauss_blur(planes[0])),
+        (f"warp_frame_similarity (the CPU path's warp), one {W}x{H} frame",
+         lambda: similarity.warp_frame_similarity(
+             *planes, torch.tensor([3.25, -7.5, 0.01, 0.02], device=dev))),
+    )
+    log(f"[2d parts] {label}: host wall ms per call, synchronised, idle card:")
+    for what, fn in parts:
+        log(f"    {what}: {host_ms(fn):.3f} ms")
+
+
 def trace_steps(tracker, frames, wall_ms):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for y in frames:
             tracker.push(y)
         torch.cuda.synchronize()
-    events = prof.key_averages()
     n = len(frames)
-    launches = sum(e.count for e in events if "LaunchKernel" in e.key)
-    busy_ms = sum(_device_us(e) for e in events) / 1e3 / n
-    log(f"[tracked profile] traced: {launches / n:.1f} kernel launches per frame")
-    if busy_ms <= 0:
-        log("[tracked profile] device busy time: not measured (the profiler "
-            "reported no device time)")
-        return
-    log(f"[tracked profile] device busy {busy_ms:.3f} ms per frame under the "
-        f"profiler; device idle share of the untraced wall "
-        f"{max(0.0, 1.0 - busy_ms / wall_ms):.3f}")
-    for e in sorted(events, key=_device_us, reverse=True)[:10]:
-        if _device_us(e) > 0:
-            log(f"    {_device_us(e) / 1e3 / n:8.4f} ms/frame  "
-                f"{e.count / n:5.1f}/frame  {e.key[:90]}")
+    launches = sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
+    log(f"[tracked profile] traced: {launches / n:.1f} kernel launches per step")
+    events = device_events(prof)
+    report_device_time("tracked profile", events, n, "step", wall_ms)
     # The port's own kernels on this path, device time per launch (CUDA
     # events over back-to-back launches of a kernel this small measure the
     # host's launch rate instead).
@@ -614,12 +985,15 @@ def main(argv=None) -> int:
     phase_build()
     results = {}
     phase_warp(dev, results)
+    phase_warp_float(dev, results)
+    phase_warp_one_frame(dev, results)
     phase_stage_lk(dev, results)
     phase_lk_frame(dev, results)
     log(f"[kernels] times above measured on {label}")
     launches = phase_renders(dev, label)
     phase_tracked_profile(dev, label)
     phase_kalman_window(dev, label)
+    phase_2d_parts(dev, label)
     log(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, k in cuda_lib.KERNELS.items():

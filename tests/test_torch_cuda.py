@@ -8,6 +8,7 @@ JAX run them with ``pytest --noconftest -m cuda tests/test_torch_cuda.py``
 neither JAX nor the JAX package.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -19,6 +20,10 @@ from video_annotator_tpu_torch.camera import (
     CameraPreset,
     get_output_camera,
     get_preset_camera,
+)
+from video_annotator_tpu_torch.models.similarity import (
+    SimilarityWarper,
+    warp_frame_similarity,
 )
 from video_annotator_tpu_torch.ops import lk_kernel, stage, warp_kernel
 from video_annotator_tpu_torch.ops.warp_plain import scaled_camera
@@ -74,6 +79,58 @@ def test_warp_kernel_matches_plain(cuda):
         want = warp_kernel.warp_planes_u8_plain(src, rots, oc, ic, size, border)
         torch.cuda.synchronize()
         assert_u8_close(got, want)
+
+
+@pytest.mark.parametrize("planes,border", [(1, 0.0), (2, 128.0), (4, 128.0)])
+@pytest.mark.parametrize("out_size", [None, (243, 321)])
+def test_float_warp_kernel_matches_plain(cuda, planes, border, out_size):
+    """K1's float mode (one plane, and P planes through one map) at even
+    and odd output sizes; float32 sums in another order: 1e-3."""
+    in_cam = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (320, 240))
+    out_cam = get_output_camera(in_cam, zoom=1.0 / 1.2)
+    size = out_size or (out_cam.height, out_cam.width)
+    g = torch.Generator().manual_seed(5)
+    src = torch.randint(0, 256, (planes, 240, 320), generator=g).to(torch.float32).to(cuda)
+    rot = so3.exp(torch.randn(3, generator=g) * 0.03).to(cuda)
+    kernel = warp_kernel.WARP_FRAME_F32 if planes == 1 else warp_kernel.WARP_PLANES_F32
+    before = kernel.launches
+    if planes == 1:
+        got = warp_kernel.warp_frame_f32(src[0], rot, out_cam, in_cam, size, border)[None]
+    else:
+        got = warp_kernel.warp_planes_f32(src, rot, out_cam, in_cam, size, border)
+    assert kernel.launches == before + 1
+    want = warp_kernel.warp_planes_f32_plain(src, rot, out_cam, in_cam, size, border)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (planes, *size)
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("out_size", [None, (242, 322), (360, 480)])
+def test_one_frame_warp_kernel_matches_the_similarity_warp(cuda, out_size):
+    """K1's uint8 mode with T = 1 over identity pinhole cameras and a
+    similarity matrix, against ``warp_similarity`` rounded (odd chroma
+    sizes and the upsample fold included): within one count."""
+    # A smooth texture: on white noise a coordinate difference of 1e-5 px
+    # between the two formulas flips the rounding of 0.2% of the pixels.
+    y = shifted_chunk(cuda, [(0.0, 0.0)], 240, 320)[0].to(torch.uint8)
+    u, v = shifted_chunk(cuda, [(3.0, 1.0), (-2.0, 5.0)], 120, 160).to(torch.uint8)
+    params = np.array([[7.5, -4.25, 0.02, 0.03 - (math.log(1.5) if out_size else 0.0)]],
+                      np.float32)
+    warper = SimilarityWarper(320, 240, out_size=out_size)
+    mat = torch.from_numpy(SimilarityWarper.matrices(params)[0]).to(cuda)
+    before = (warp_kernel.WARP_YUV_LUMA.launches, warp_kernel.WARP_YUV_CHROMA.launches)
+    got = warper.warp_yuv(y, u, v, mat)
+    assert (warp_kernel.WARP_YUV_LUMA.launches,
+            warp_kernel.WARP_YUV_CHROMA.launches) == (before[0] + 1, before[1] + 1)
+    want = warp_frame_similarity(y.float(), u.float(), v.float(),
+                                 torch.from_numpy(params[0]).to(cuda),
+                                 out_size=out_size and (warper.out_h, warper.out_w))
+    plain = warper.warp_yuv(y.cpu(), u.cpu(), v.cpu(), mat.cpu())
+    torch.cuda.synchronize()
+    for gp, wp, pp in zip(got, want, plain):
+        assert gp.dtype == torch.uint8 and gp.shape == wp.shape
+        assert_u8_close(gp, warp_kernel.to_u8(wp))
+        assert_u8_close(gp.cpu(), pp)
 
 
 def shifted_chunk(device, shifts, h=480, w=640):
@@ -181,5 +238,65 @@ def test_render_on_card_matches_cpu(cuda, tmp_path):
     trender.encode(src, str(tmp_path / "enc.y4m"), outs["cpu"][0],
                    trender.RenderOptions(**opts), device="cuda")
     for a, b in zip(frames[0], open_reader(str(tmp_path / "enc.y4m"))):
+        for pa, pb in zip(a, b):
+            assert_u8_close(torch.from_numpy(np.array(pa)), torch.from_numpy(np.array(pb)))
+
+
+@pytest.mark.parametrize("flt", ["vidstab", "deshake"])
+def test_2d_family_render_on_card_matches_cpu(cuda, tmp_path, flt):
+    """One trajectory (the card's) encoded on both devices: frames within
+    one count; the two analysers agree to a fraction of a pixel."""
+    src = "synthetic://shaky?w=640&h=480&n=8&seed=3"
+    opts = trender.RenderOptions(filter=flt, stabilise="smooth", stabilise_radius=3)
+    dest = {d: str(tmp_path / f"{d}.y4m") for d in ("cpu", "cuda")}
+    trender.render(src, dest["cuda"], opts, device="cuda")
+    card = Trajectory.load(dest["cuda"] + ".traj.npz")
+    trender.encode_2d(src, dest["cpu"], card, opts, device="cpu")
+    from video_annotator_tpu_torch.io.video import open_reader
+
+    for a, b in zip(open_reader(dest["cpu"]), open_reader(dest["cuda"])):
+        for pa, pb in zip(a, b):
+            assert_u8_close(torch.from_numpy(np.array(pa)), torch.from_numpy(np.array(pb)))
+    trender.render(src, dest["cpu"], dataclasses.replace(opts, analyse_only=True),
+                   device="cpu")
+    host = Trajectory.load(dest["cpu"] + ".traj.npz")
+    assert host.kind == card.kind and host.num_frames == card.num_frames == 8
+    np.testing.assert_allclose(card.params[:, :2], host.params[:, :2], atol=0.05)
+    np.testing.assert_allclose(card.params[:, 2:], host.params[:, 2:], atol=2e-4)
+
+
+def test_compare_grid_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The four-way grid on both devices from the card's trajectories:
+    rotation cells through K1's float mode, the similarity cell through
+    its one-frame uint8 mode; within one count of the CPU's plain warps."""
+    from video_annotator_tpu_torch.io.video import open_reader
+    from video_annotator_tpu_torch.pipeline import compare
+
+    src = "synthetic://shaky?w=640&h=480&n=6&seed=3"
+    modes = ["none", "smooth", "vidstab", "deshake"]
+    opts = trender.RenderOptions(stabilise_radius=2, cell_labels=False,
+                                 preset=CameraPreset.GOPRO_H4B_WIDE43_MEASURED)
+    seen = {}
+
+    def once(name, fn):
+        def wrapper(*args, **kwargs):
+            if name not in seen:
+                seen[name] = fn(*args, **kwargs)
+            return seen[name]
+        return wrapper
+
+    for name in ("analyse", "analyse_similarity", "analyse_deshake"):
+        monkeypatch.setattr(compare, name, once(name, getattr(compare, name)))
+    names = ("warp_frame_f32", "warp_planes_f32", "warp_yuv_luma", "warp_yuv_chroma")
+    before = {n: warp_kernel.cuda_lib.KERNELS[n].launches for n in names}
+    compare.render_compare(src, str(tmp_path / "cuda.y4m"), modes, opts, device="cuda")
+    after = {n: warp_kernel.cuda_lib.KERNELS[n].launches - before[n] for n in names}
+    assert after == {"warp_frame_f32": 12, "warp_planes_f32": 12,
+                     "warp_yuv_luma": 6, "warp_yuv_chroma": 6}
+    assert len(seen) == 3  # the CPU run below reuses the card's trajectories
+    compare.render_compare(src, str(tmp_path / "cpu.y4m"), modes, opts, device="cpu")
+    frames = [list(open_reader(str(tmp_path / f"{d}.y4m"))) for d in ("cpu", "cuda")]
+    assert len(frames[0]) == len(frames[1]) == 6
+    for a, b in zip(*frames):
         for pa, pb in zip(a, b):
             assert_u8_close(torch.from_numpy(np.array(pa)), torch.from_numpy(np.array(pb)))

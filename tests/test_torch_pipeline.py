@@ -139,7 +139,7 @@ def test_encode_only_without_trajectory_errors(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("debug", True), ("crop_rect", "64:48"), ("filter", "similarity"),
+    ("debug", True), ("crop_rect", "64:48"), ("device_sink", True),
     ("interp", "bicubic"), ("projection", "equirect"), ("rolling_shutter", 0.75),
     ("horizon_lock", True), ("gyro", True), ("prefilter", "auto"),
 ])
@@ -244,3 +244,11 @@ def test_kernel_wrappers_refuse_other_devices():
                                                device=meta),
                                    torch.eye(3)[None], get_output_camera(in_cam),
                                    in_cam, (8, 8))
+    with pytest.raises(ValueError, match="no kernel"):
+        warp_kernel.warp_planes_f32(torch.empty((2, 24, 32), device=meta), torch.eye(3),
+                                    get_output_camera(in_cam), in_cam, (8, 8))
+    plane = torch.empty((48, 64), dtype=torch.uint8, device=meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        warp_kernel.warp_yuv(plane, plane[:24, :32], plane[:24, :32], torch.eye(3),
+                             get_output_camera(in_cam), in_cam,
+                             get_output_camera(in_cam), in_cam, (8, 8))

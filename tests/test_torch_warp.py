@@ -1,6 +1,7 @@
-"""The torch port's warp (plain version of kernel K1) against the JAX
-package: the XLA oracle, the CPU ``FrameWarper`` path and the Pallas
-kernel in interpret mode."""
+"""The torch port's warp (plain versions of kernel K1's uint8 and float
+modes) against the JAX package: the XLA oracle, the CPU ``FrameWarper``
+paths (batch, one frame, float planes) and the Pallas kernels in
+interpret mode."""
 
 import numpy as np
 import pytest
@@ -14,7 +15,13 @@ from video_annotator_tpu.camera import (
     get_output_camera,
     get_preset_camera,
 )
-from video_annotator_tpu.ops.warp_pallas import plan_warp, warp_yuv_batch_pallas
+from video_annotator_tpu.ops.warp_pallas import (
+    plan_warp,
+    warp_frame_pallas,
+    warp_planes_pallas,
+    warp_yuv_batch_pallas,
+    warp_yuv_pallas,
+)
 from video_annotator_tpu.ops.warp_xla import _scaled_camera, warp_image_xla
 from video_annotator_tpu.pipeline.render import FrameWarper as JaxFrameWarper
 from video_annotator_tpu_torch import camera as tcamera
@@ -132,3 +139,132 @@ def test_warp_rejects_bad_operands():
         warp_kernel.warp_planes_u8(torch.zeros((1, 1, 8, 8), dtype=torch.float32),
                                    torch.eye(3)[None], to_port(jout), to_port(jin),
                                    (4, 4))
+
+
+def float_planes(w, h, seed):
+    """Integer-valued float planes, as the compare grid passes them."""
+    return tuple(a[0].astype(np.float32) for a in yuv_frames(1, w, h, seed))
+
+
+@pytest.mark.parametrize("crop_borders,zoom", [(True, 1.0), (False, 1.0 / 1.2)])
+def test_framewarper_call_matches_jax_framewarper(crop_borders, zoom):
+    """Float planes in, float planes out, neither rounded nor clamped."""
+    w, h = 320, 240
+    jin, jout = cameras(w, h, crop_borders, zoom=zoom)
+    y, u, v = float_planes(w, h, 6)
+    rot = rotations(1, 7)[0]
+    want = JaxFrameWarper(jin, jout, max_correction_deg=8.0)(
+        jnp.asarray(y), jnp.asarray(u), jnp.asarray(v), jnp.asarray(rot))
+    tw = FrameWarper(to_port(jin), to_port(jout))
+    got = tw(torch.from_numpy(y), torch.from_numpy(u), torch.from_numpy(v),
+             torch.from_numpy(rot))
+    for g, wnt in zip(got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == wnt.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), atol=FLOAT_ATOL)
+    if not crop_borders:  # outside the image: luma 0, chroma the neutral 128
+        assert float(got[0][0, 0]) == 0.0
+        assert float(got[1][0, 0]) == float(got[2][0, 0]) == 128.0
+
+
+def test_framewarper_warp_yuv_matches_jax_framewarper():
+    w, h = 320, 240
+    jin, jout = cameras(w, h, False, zoom=1.0 / 1.2)
+    ys, us, vs = yuv_frames(1, w, h, 8)
+    rot = rotations(1, 9)[0]
+    want = JaxFrameWarper(jin, jout, max_correction_deg=8.0).warp_yuv(
+        jnp.asarray(ys[0]), jnp.asarray(us[0]), jnp.asarray(vs[0]), jnp.asarray(rot))
+    tw = FrameWarper(to_port(jin), to_port(jout))
+    got = tw.warp_yuv(torch.from_numpy(ys[0]), torch.from_numpy(us[0]),
+                      torch.from_numpy(vs[0]), torch.from_numpy(rot))
+    batch = tw.warp_yuv_batch([torch.from_numpy(ys[0])], [torch.from_numpy(us[0])],
+                              [torch.from_numpy(vs[0])], torch.from_numpy(rot)[None])
+    for g, b, wnt in zip(got, batch[0], want):
+        assert g.dtype == torch.uint8 and torch.equal(g, b)
+        assert_u8_close(g.numpy(), np.asarray(wnt))
+
+
+def test_warp_yuv_matches_pallas_interpret():
+    """One frame, one matrix, against the TPU kernels of ``_build_warp_yuv_fn``."""
+    w, h = 320, 240
+    jin, jout = cameras(w, h, True)
+    ys, us, vs = yuv_frames(1, w, h, 10)
+    rot = rotations(1, 11)[0]
+    out_w, out_h = jout.width - jout.width % 2, jout.height - jout.height % 2
+    jin_c, jout_c = _scaled_camera(jin, 0.5), _scaled_camera(jout, 0.5)
+    plan_y = plan_warp(jout, jin, 8.0, (out_h, out_w))
+    plan_c = plan_warp(jout_c, jin_c, 8.0, (out_h // 2, out_w // 2))
+    want = warp_yuv_pallas(jnp.asarray(ys[0]), jnp.asarray(us[0]), jnp.asarray(vs[0]),
+                           jnp.asarray(rot), plan_y, jout, jin, plan_c, jout_c, jin_c,
+                           interpret=True)
+    got = warp_kernel.warp_yuv(
+        torch.from_numpy(ys[0]), torch.from_numpy(us[0]), torch.from_numpy(vs[0]),
+        torch.from_numpy(rot), to_port(jout), to_port(jin), to_port(jout_c),
+        to_port(jin_c), (out_h, out_w))
+    for g, wnt in zip(got, want):
+        assert_u8_close(g.numpy(), np.asarray(wnt))
+
+
+@pytest.mark.parametrize("planes", [1, 2, 3])
+def test_warp_planes_f32_matches_pallas_interpret_and_oracle(planes):
+    """P planes of one frame through one map: against the TPU kernels of
+    ``_build_warp_fn`` (P = 1) and ``_build_warp_planes_fn`` in interpret
+    mode, and against the XLA oracle plane by plane."""
+    w, h = 320, 240
+    jin, jout = cameras(w, h, True)
+    rng = np.random.default_rng(12 + planes)
+    src = np.round(rng.uniform(0, 255, size=(planes, h, w))).astype(np.float32)
+    rot = rotations(1, 13)[0]
+    border = 0.0 if planes == 1 else 128.0
+    plan = plan_warp(jout, jin, max_correction_deg=6.0)
+    if planes == 1:
+        pallas = [warp_frame_pallas(jnp.asarray(src[0]), jnp.asarray(rot), plan, jout,
+                                    jin, interpret=True)]
+        got = warp_kernel.warp_frame_f32(
+            torch.from_numpy(src[0]), torch.from_numpy(rot), to_port(jout), to_port(jin),
+            (jout.height, jout.width))[None]
+    else:
+        pallas = warp_planes_pallas([jnp.asarray(p) for p in src], jnp.asarray(rot),
+                                    plan, jout, jin, interpret=True, border=border)
+        got = warp_kernel.warp_planes_f32(
+            torch.from_numpy(src), torch.from_numpy(rot), to_port(jout), to_port(jin),
+            (jout.height, jout.width), border=border)
+    assert got.shape == (planes, jout.height, jout.width) and got.dtype == torch.float32
+    for p in range(planes):
+        oracle = warp_image_xla(jnp.asarray(src[p]) - border, jout, jin,
+                                jnp.asarray(rot)) + border
+        np.testing.assert_allclose(got[p].numpy(), np.asarray(oracle), atol=FLOAT_ATOL)
+        np.testing.assert_allclose(got[p].numpy(), np.asarray(pallas[p]), atol=FLOAT_ATOL)
+
+
+def test_float_warp_samples_the_float_source_unrounded():
+    """The port holds to the oracle: a fractional source is sampled as it
+    is (the TPU kernel rounded it to bytes while packing), and values
+    outside [0, 255] pass through unclamped."""
+    jin, jout = cameras(64, 48, True)
+    src = torch.full((1, 48, 64), 300.25)
+    out = warp_kernel.warp_planes_f32(src, torch.eye(3), to_port(jout), to_port(jin),
+                                      (jout.height, jout.width))
+    centre = out[0, jout.height // 2, jout.width // 2]
+    assert abs(float(centre) - 300.25) < 1e-3
+
+
+@pytest.mark.parametrize("src,rot", [
+    (torch.zeros((5, 8, 8)), torch.eye(3)),  # more than 4 planes
+    (torch.zeros((0, 8, 8)), torch.eye(3)),
+    (torch.zeros((2, 8, 8), dtype=torch.uint8), torch.eye(3)),
+    (torch.zeros((8, 8)), torch.eye(3)),
+    (torch.zeros((2, 8, 8)), torch.eye(3)[None]),  # one matrix, not a stack
+])
+def test_float_warp_rejects_bad_operands(src, rot):
+    jin, jout = cameras(64, 48, False)
+    with pytest.raises(ValueError):
+        warp_kernel.warp_planes_f32(src, rot, to_port(jout), to_port(jin), (4, 4))
+
+
+def test_warp_yuv_rejects_a_matrix_stack():
+    jin, jout = cameras(64, 48, False)
+    y = torch.zeros((48, 64), dtype=torch.uint8)
+    c = torch.zeros((24, 32), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="one"):
+        warp_kernel.warp_yuv(y, c, c, torch.eye(3)[None], to_port(jout), to_port(jin),
+                             to_port(jout), to_port(jin), (8, 8))

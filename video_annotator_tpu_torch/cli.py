@@ -2,14 +2,18 @@
 
 The ``render`` subcommand has the JAX package's full option set (the
 frozen v1.0 surface: same option strings, defaults and choices) and runs
-the ported stock path on a CUDA device; options outside the ported slice
-stop with ``NotImplementedError`` naming their ROADMAP item. The other
-subcommands of the JAX CLI (join, compare, workflow, probe, calibrate)
-exist and exit non-zero as not yet ported.
+the ported paths on a CUDA device: the rotation family (two-phase or
+``--streaming``), ``--filter vidstab`` and ``--filter deshake``, and the
+``--compare`` grid. Options outside the ported slices stop with
+``NotImplementedError`` naming their ROADMAP item. The other subcommands
+of the JAX CLI (join, compare, workflow, probe, calibrate) exist and exit
+non-zero as not yet ported.
 
 Usage::
 
     python -m video_annotator_tpu_torch render in.y4m out.y4m --stabilise smooth
+    python -m video_annotator_tpu_torch render in.y4m out.y4m --filter vidstab --stabilise smooth
+    python -m video_annotator_tpu_torch render in.y4m grid.y4m --compare none,smooth,vidstab,deshake
 """
 
 from __future__ import annotations
@@ -349,10 +353,16 @@ def main(argv=None) -> int:
             raise RuntimeError(
                 "no CUDA device: the torch package's CLI renders on a GPU "
                 "(library calls take device='cpu' for testing)")
-        if args.compare or args.trace:
+        if args.trace:
             raise NotImplementedError(
-                "--compare/--trace are not ported to the torch package yet "
-                "(ROADMAP.md)")
+                "--trace is not ported to the torch package yet (ROADMAP.md)")
+        if args.compare:
+            from video_annotator_tpu_torch.pipeline.compare import render_compare
+
+            modes = [m.strip() for m in args.compare.split(",") if m.strip()]
+            render_compare(args.source, args.dest, modes, _render_options(args),
+                           device="cuda")
+            return 0
         from video_annotator_tpu_torch.pipeline.render import render
 
         render(args.source, args.dest, _render_options(args), device="cuda")

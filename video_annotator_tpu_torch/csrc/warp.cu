@@ -1,26 +1,43 @@
-// K1: fused warp map + bilinear remap of a frame batch to uint8.
+// K1: fused warp map + bilinear remap, in three modes that share one map
+// and one tap routine.
 //
 // Replaces the TPU fused warp video_annotator_tpu/ops/warp_pallas.py
-// (_make_kernel :923-1499 as built by _build_warp_yuv_batch_fn :2141: the
-// uint8 luma kernel call_y and the two-plane chroma kernel call_c,
-// batched="uv", border=128). Per output pixel of a rectilinear output
-// camera: ray = ((x-ocx)/ofx, (y-ocy)/ofy, 1), v = R ray, a = vx/vz,
-// b = vy/vz; for a fisheye input theta = atan(r)(1+k1 t^2+..+k4 t^8),
-// s = theta/r; then exact 2x2 bilinear sampling with out-of-image taps
-// reading `border`, round half to even (rintf) and clamp to uint8. The
-// sampling is centred on the border value like the XLA oracle
-// (video_annotator_tpu/pipeline/render.py:1806-1812): taps contribute
-// (p - border), the sum gets + border.
+// (_make_kernel :923-1499) as built by
+//   _build_warp_yuv_batch_fn :2141  -- a frame batch to uint8, per-frame
+//       3x3: luma kernel call_y and two-plane chroma kernel call_c
+//       (batched="uv", border=128)                      -> vat_warp_u8, T > 1
+//   _build_warp_yuv_fn :2041/:2066  -- one frame to uint8, one 3x3: the
+//       same two kernels                                -> vat_warp_u8, T = 1
+//   _build_warp_fn :1803            -- one float plane, one 3x3, float32
+//       output, not rounded                             -> vat_warp_f32, P = 1
+//   _build_warp_planes_fn :1957     -- P planes of one frame sharing one
+//       map (batched="planes", border=128 for chroma)   -> vat_warp_f32, P > 1
 //
-// Bound on Hopper: the dependent 4-tap gather of uint8 source bytes and
-// the output stores; the map (about 40 flops and one atanf per pixel) is
-// cheap next to them. Design: one thread per output pixel, a 32x8 block
-// so a warp covers 32 consecutive output columns (coalesced stores, taps
-// of neighbouring pixels hit the same source cache lines), the source
-// read straight from global memory through the read-only cache. In the
-// chroma mode one thread computes the map once and samples both planes.
-// No VMEM windows, origin passes or packed layouts: those served the
-// TPU's lane gather.
+// Per output pixel of a rectilinear output camera: ray = ((x-ocx)/ofx,
+// (y-ocy)/ofy, 1) (as a product with 1/ofx, taken once on the host, which
+// is how the plain version's division of a tensor by a scalar runs on the
+// card), v = R ray, a = vx/vz, b = vy/vz; for a fisheye input
+// theta = atan(r)(1+k1 t^2+..+k4 t^8), s = theta/r; then exact 2x2 bilinear
+// sampling with out-of-image taps reading `border`. The sampling is centred
+// on the border value like the XLA oracle
+// (video_annotator_tpu/pipeline/render.py:1806-1812): taps contribute
+// (p - border), the sum gets + border. The uint8 mode rounds half to even
+// (rintf) and clamps; the float mode stores the sum as it is. R is any 3x3:
+// a rotation between real cameras, or a homogeneous pixel matrix between
+// identity pinhole cameras (f = 1, c = 0), where the "ray" is the pixel
+// coordinate and vz is exactly 1.
+//
+// Bound on Hopper: the uint8 mode by the dependent 4-tap gather of source
+// bytes and its operations (per pixel about 28 for the map between
+// rectilinear cameras and 20 more for a fisheye input, 20 per plane for
+// the taps); the float mode moves 4 bytes per source and output
+// element and sits nearer its byte bound. Design: one thread per output
+// pixel, a 32x8 block so a warp covers 32 consecutive output columns
+// (coalesced stores, taps of neighbouring pixels hit the same source cache
+// lines), the source read straight from global memory through the
+// read-only cache. One thread computes the map once and samples every
+// plane of its frame. No VMEM windows, origin passes or packed layouts:
+// those served the TPU's lane gather.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,7 +45,7 @@
 namespace {
 
 struct WarpParams {
-  float ofx, ofy, ocx, ocy;  // output (rectilinear) camera
+  float inv_ofx, inv_ofy, ocx, ocy;  // output (rectilinear) camera, 1 / focal
   float ifx, ify, icx, icy;  // input camera
   float k1, k2, k3, k4;      // input fisheye distortion
   float border;
@@ -36,6 +53,87 @@ struct WarpParams {
   int fisheye;
 };
 
+// Products and sums that the compiler may not contract into fused
+// multiply-adds. The plain version computes the map and the taps as
+// separate float32 tensor operations, each rounded; with the same roundings
+// here the source coordinates agree bit for bit on the card (both sides use
+// CUDA's division, sqrtf and atanf). A contracted map differs by about
+// 1e-3 px at 4K, which the image gradient turns into a tenth of a count:
+// too coarse a tolerance to hold a float kernel to.
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+
+// Source coordinates of output pixel (x, y) under the 3x3 `r`. False when
+// every tap falls outside the image or the ray points behind the camera.
+__device__ __forceinline__ bool source_coords(const WarpParams& p,
+                                              const float* __restrict__ r, int x,
+                                              int y, float* sx, float* sy) {
+  const float rx = mul((float)x - p.ocx, p.inv_ofx);
+  const float ry = mul((float)y - p.ocy, p.inv_ofy);
+  const float vx = add(add(mul(r[0], rx), mul(r[1], ry)), r[2]);
+  const float vy = add(add(mul(r[3], rx), mul(r[4], ry)), r[5]);
+  const float vz = add(add(mul(r[6], rx), mul(r[7], ry)), r[8]);
+  const float inv_z = 1.0f / vz;
+  const float a = vx * inv_z;
+  const float b = vy * inv_z;
+  if (p.fisheye) {
+    const float rr = sqrtf(add(mul(a, a), mul(b, b)));
+    const float th = atanf(rr);
+    const float t2 = th * th;
+    const float poly = add(p.k1, mul(t2, add(p.k2, mul(t2, add(p.k3, mul(t2, p.k4))))));
+    const float thd = mul(th, add(1.0f, mul(t2, poly)));
+    const float scale = rr > 1e-8f ? thd / fmaxf(rr, 1e-8f) : 1.0f;
+    *sx = add(mul(mul(p.ifx, a), scale), p.icx);
+    *sy = add(mul(mul(p.ify, b), scale), p.icy);
+  } else {
+    *sx = add(mul(p.ifx, a), p.icx);
+    *sy = add(mul(p.ify, b), p.icy);
+  }
+  return *sx > -1.0f && *sx < (float)p.in_w && *sy > -1.0f &&
+         *sy < (float)p.in_h && vz > 1e-6f;
+}
+
+// The 2x2 bilinear taps around (sx, sy) of one plane, centred on the
+// border: out-of-image taps contribute 0, the sum gets + border.
+struct Taps {
+  float fx, fy;
+  size_t row0, row1;
+  int xi;
+  bool in_x0, in_x1, in_y0, in_y1;
+
+  __device__ __forceinline__ Taps(const WarpParams& p, float sx, float sy) {
+    const float x0 = floorf(sx);
+    const float y0 = floorf(sy);
+    fx = sx - x0;
+    fy = sy - y0;
+    xi = (int)x0;
+    const int yi = (int)y0;
+    in_x0 = xi >= 0;
+    in_x1 = xi + 1 < p.in_w;
+    in_y0 = yi >= 0;
+    in_y1 = yi + 1 < p.in_h;
+    row0 = (size_t)yi * p.in_w;
+    row1 = row0 + p.in_w;
+  }
+
+  template <typename T>
+  __device__ __forceinline__ float sample(const T* __restrict__ s, float border) const {
+    const float v00 = (in_y0 && in_x0) ? (float)__ldg(s + row0 + xi) - border : 0.0f;
+    const float v01 = (in_y0 && in_x1) ? (float)__ldg(s + row0 + xi + 1) - border : 0.0f;
+    const float v10 = (in_y1 && in_x0) ? (float)__ldg(s + row1 + xi) - border : 0.0f;
+    const float v11 = (in_y1 && in_x1) ? (float)__ldg(s + row1 + xi + 1) - border : 0.0f;
+    const float top = add(mul(v00, 1.0f - fx), mul(v01, fx));
+    const float bot = add(mul(v10, 1.0f - fx), mul(v11, fx));
+    return add(add(mul(top, 1.0f - fy), mul(bot, fy)), border);
+  }
+};
+
+__device__ __forceinline__ uint8_t to_u8(float v) {
+  return (uint8_t)(int)fminf(fmaxf(rintf(v), 0.0f), 255.0f);
+}
+
+// (T, NPLANES, in_h, in_w) uint8 -> (T, NPLANES, out_h, out_w) uint8, one
+// 3x3 per frame.
 template <int NPLANES>
 __global__ void warp_kernel(const uint8_t* __restrict__ src,
                             uint8_t* __restrict__ dst,
@@ -45,62 +143,49 @@ __global__ void warp_kernel(const uint8_t* __restrict__ src,
   const int t = blockIdx.z;
   if (x >= p.out_w || y >= p.out_h) return;
 
-  const float* r = rot + t * 9;
-  const float rx = ((float)x - p.ocx) / p.ofx;
-  const float ry = ((float)y - p.ocy) / p.ofy;
-  const float vx = r[0] * rx + r[1] * ry + r[2];
-  const float vy = r[3] * rx + r[4] * ry + r[5];
-  const float vz = r[6] * rx + r[7] * ry + r[8];
-  const float inv_z = 1.0f / vz;
-  const float a = vx * inv_z;
-  const float b = vy * inv_z;
   float sx, sy;
-  if (p.fisheye) {
-    const float rr = sqrtf(a * a + b * b);
-    const float th = atanf(rr);
-    const float t2 = th * th;
-    const float thd = th * (1.0f + t2 * (p.k1 + t2 * (p.k2 + t2 * (p.k3 + t2 * p.k4))));
-    const float scale = rr > 1e-8f ? thd / fmaxf(rr, 1e-8f) : 1.0f;
-    sx = p.ifx * a * scale + p.icx;
-    sy = p.ify * b * scale + p.icy;
-  } else {
-    sx = p.ifx * a + p.icx;
-    sy = p.ify * b + p.icy;
-  }
-
+  const bool valid = source_coords(p, rot + t * 9, x, y, &sx, &sy);
   const size_t in_plane = (size_t)p.in_h * p.in_w;
   const size_t out_plane = (size_t)p.out_h * p.out_w;
   uint8_t* out = dst + (size_t)t * NPLANES * out_plane + (size_t)y * p.out_w + x;
-  // Every tap outside the image (or a ray behind the camera): the border.
-  const bool valid = sx > -1.0f && sx < (float)p.in_w && sy > -1.0f &&
-                     sy < (float)p.in_h && vz > 1e-6f;
   if (!valid) {
-    const uint8_t bu8 = (uint8_t)(int)fminf(fmaxf(rintf(p.border), 0.0f), 255.0f);
+    const uint8_t bu8 = to_u8(p.border);
 #pragma unroll
     for (int pl = 0; pl < NPLANES; ++pl) out[pl * out_plane] = bu8;
     return;
   }
-  const float x0 = floorf(sx);
-  const float y0 = floorf(sy);
-  const float fx = sx - x0;
-  const float fy = sy - y0;
-  const int xi = (int)x0;
-  const int yi = (int)y0;
-  const bool in_x0 = xi >= 0, in_x1 = xi + 1 < p.in_w;
-  const bool in_y0 = yi >= 0, in_y1 = yi + 1 < p.in_h;
-  const size_t row0 = (size_t)yi * p.in_w;
-  const size_t row1 = row0 + p.in_w;
+  const Taps taps(p, sx, sy);
 #pragma unroll
   for (int pl = 0; pl < NPLANES; ++pl) {
     const uint8_t* s = src + ((size_t)t * NPLANES + pl) * in_plane;
-    const float v00 = (in_y0 && in_x0) ? (float)__ldg(s + row0 + xi) - p.border : 0.0f;
-    const float v01 = (in_y0 && in_x1) ? (float)__ldg(s + row0 + xi + 1) - p.border : 0.0f;
-    const float v10 = (in_y1 && in_x0) ? (float)__ldg(s + row1 + xi) - p.border : 0.0f;
-    const float v11 = (in_y1 && in_x1) ? (float)__ldg(s + row1 + xi + 1) - p.border : 0.0f;
-    const float top = v00 * (1.0f - fx) + v01 * fx;
-    const float bot = v10 * (1.0f - fx) + v11 * fx;
-    const float val = top * (1.0f - fy) + bot * fy + p.border;
-    out[pl * out_plane] = (uint8_t)(int)fminf(fmaxf(rintf(val), 0.0f), 255.0f);
+    out[pl * out_plane] = to_u8(taps.sample(s, p.border));
+  }
+}
+
+// (NPLANES, in_h, in_w) float32 planes of one frame -> (NPLANES, out_h,
+// out_w) float32 under ONE 3x3; neither rounded nor clamped.
+template <int NPLANES>
+__global__ void warp_f32_kernel(const float* __restrict__ src,
+                                float* __restrict__ dst,
+                                const float* __restrict__ rot, WarpParams p) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= p.out_w || y >= p.out_h) return;
+
+  float sx, sy;
+  const bool valid = source_coords(p, rot, x, y, &sx, &sy);
+  const size_t in_plane = (size_t)p.in_h * p.in_w;
+  const size_t out_plane = (size_t)p.out_h * p.out_w;
+  float* out = dst + (size_t)y * p.out_w + x;
+  if (!valid) {
+#pragma unroll
+    for (int pl = 0; pl < NPLANES; ++pl) out[pl * out_plane] = p.border;
+    return;
+  }
+  const Taps taps(p, sx, sy);
+#pragma unroll
+  for (int pl = 0; pl < NPLANES; ++pl) {
+    out[pl * out_plane] = taps.sample(src + pl * in_plane, p.border);
   }
 }
 
@@ -112,7 +197,7 @@ extern "C" int vat_warp_u8(const void* src, void* dst, const void* rot, int t,
                            float ify, float icx, float icy, float k1, float k2,
                            float k3, float k4, int fisheye, float border,
                            void* stream) {
-  WarpParams p{ofx, ofy, ocx, ocy, ifx, ify, icx, icy, k1, k2, k3, k4,
+  WarpParams p{1.0f / ofx, 1.0f / ofy, ocx, ocy, ifx, ify, icx, icy, k1, k2, k3, k4,
                border, in_w, in_h, out_w, out_h, fisheye};
   const dim3 block(32, 8);
   const dim3 grid((out_w + 31) / 32, (out_h + 7) / 8, t);
@@ -126,6 +211,30 @@ extern "C" int vat_warp_u8(const void* src, void* dst, const void* rot, int t,
     warp_kernel<2><<<grid, block, 0, s>>>(in, out, r, p);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int vat_warp_f32(const void* src, void* dst, const void* rot,
+                            int nplanes, int in_h, int in_w, int out_h, int out_w,
+                            float ofx, float ofy, float ocx, float ocy, float ifx,
+                            float ify, float icx, float icy, float k1, float k2,
+                            float k3, float k4, int fisheye, float border,
+                            void* stream) {
+  WarpParams p{1.0f / ofx, 1.0f / ofy, ocx, ocy, ifx, ify, icx, icy, k1, k2, k3, k4,
+               border, in_w, in_h, out_w, out_h, fisheye};
+  const dim3 block(32, 8);
+  const dim3 grid((out_w + 31) / 32, (out_h + 7) / 8, 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* in = static_cast<const float*>(src);
+  float* out = static_cast<float*>(dst);
+  const float* r = static_cast<const float*>(rot);
+  switch (nplanes) {
+    case 1: warp_f32_kernel<1><<<grid, block, 0, s>>>(in, out, r, p); break;
+    case 2: warp_f32_kernel<2><<<grid, block, 0, s>>>(in, out, r, p); break;
+    case 3: warp_f32_kernel<3><<<grid, block, 0, s>>>(in, out, r, p); break;
+    case 4: warp_f32_kernel<4><<<grid, block, 0, s>>>(in, out, r, p); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,7 +39,7 @@ def _decim_matrix(n: int, device: torch.device) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _full_fp32_matmul():
+def full_fp32_matmul():
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -54,7 +54,7 @@ def pyr_down(img: torch.Tensor) -> torch.Tensor:
     h, w = img.shape[-2:]
     dy = _decim_matrix(h, img.device)
     dx = _decim_matrix(w, img.device)
-    with _full_fp32_matmul():
+    with full_fp32_matmul():
         return torch.matmul(torch.matmul(dy, img), dx.T)
 
 

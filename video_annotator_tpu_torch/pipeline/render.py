@@ -1,10 +1,13 @@
 """Two-phase render: analyse (motion) then encode (warp), on one device.
 
-Port of the rotation family of ``video_annotator_tpu/pipeline/render.py``:
-``render in out --stabilise smooth`` two-phase (here) or single-pass
-(``--streaming``, ``pipeline/streaming.py``), with either analyser,
-Savitzky-Golay or Kalman smoothing on SO(3) and the bilinear rectilinear
-warp.
+Port of ``video_annotator_tpu/pipeline/render.py``. The rotation family
+(``--filter dewobble``, the default): ``render in out --stabilise smooth``
+two-phase (here) or single-pass (``--streaming``,
+``pipeline/streaming.py``), with either analyser, Savitzky-Golay or
+Kalman smoothing on SO(3) and the bilinear rectilinear warp. The 2D
+families (``--filter vidstab``, ``--filter deshake``; ``models/``) share
+the two-phase skeleton: their analysers write a ``similarity`` or
+``translation`` trajectory and :func:`encode_2d` warps with it.
 
 1. Analyse (:func:`analyse`), ``--analysis-mode paired``
    (:class:`PairTracker`): per chunk of G frames (plus the previous
@@ -24,9 +27,9 @@ warp.
    the fused warp (K1) and write them.
 
 Every library entry point takes ``device``. Options outside the ported
-slices (other families, gyro, horizon lock, rolling shutter, other
-resamplers and projections, prefilter, crop, overlays) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+slices (gyro, horizon lock, rolling shutter, other resamplers and
+projections, prefilter, crop, overlays) raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -64,7 +67,8 @@ from video_annotator_tpu_torch.ops.ransac import (
     rotation_with_fallback,
     sample_pairs,
 )
-from video_annotator_tpu_torch.ops.warp_kernel import warp_yuv_batch
+from video_annotator_tpu_torch.models import FILTER_ALIASES
+from video_annotator_tpu_torch.ops import warp_kernel
 from video_annotator_tpu_torch.ops.warp_plain import (
     box_downsample,
     mip_camera,
@@ -166,7 +170,6 @@ class RenderOptions:
 
 # (option, value that this package runs, ROADMAP.md item that ports the rest)
 _UNPORTED = (
-    ("filter", ("rotation", "dewobble"), "2D families"),
     ("gyro", (False,), "horizon/gyro/rolling"),
     ("horizon_lock", (False,), "horizon/gyro/rolling"),
     ("rolling_shutter", (0.0,), "horizon/gyro/rolling"),
@@ -679,8 +682,11 @@ def max_rotation_deg(rotations: np.ndarray) -> float:
 
 
 class FrameWarper:
-    """Batched YUV 4:2:0 warp between a fisheye input and a rectilinear
-    output camera (kernel K1 on CUDA tensors)."""
+    """YUV 4:2:0 warp between a fisheye input and a rectilinear output
+    camera (kernel K1 on CUDA tensors): a frame batch to uint8
+    (:meth:`warp_yuv_batch`, the encode path), one frame to uint8
+    (:meth:`warp_yuv`) or one frame's float planes to float32
+    (:meth:`__call__`, the compare grid's rotation cells)."""
 
     def __init__(self, in_cam: Camera, out_cam: Camera):
         self.in_cam = in_cam
@@ -693,11 +699,30 @@ class FrameWarper:
     def warp_yuv_batch(self, ys, us, vs, rotations: torch.Tensor):
         """Per-frame plane sequences + (T, 3, 3) rotations -> list of T
         uint8 (y, u, v) triples."""
-        wy, wu, wv = warp_yuv_batch(
+        wy, wu, wv = warp_kernel.warp_yuv_batch(
             torch.stack(list(ys)), torch.stack(list(us)), torch.stack(list(vs)),
             rotations, self.out_cam, self.in_cam, self.out_half, self.in_half,
             (self.out_h, self.out_w))
         return list(zip(wy, wu, wv))
+
+    def __call__(self, y, u, v, rotation: torch.Tensor):
+        """One frame's float32 planes + one (3, 3) rotation -> float32
+        ``(wy, wu, wv)``, neither rounded nor clamped: luma in one launch,
+        U and V sharing one map in another. Chroma samples centred on 128
+        so regions outside the image come out neutral, not green."""
+        size = (self.out_h, self.out_w)
+        wy = warp_kernel.warp_frame_f32(y, rotation, self.out_cam, self.in_cam, size)
+        wc = warp_kernel.warp_planes_f32(
+            torch.stack([u, v]), rotation, self.out_half, self.in_half,
+            (self.out_h // 2, self.out_w // 2), border=128.0)
+        return wy, wc[0], wc[1]
+
+    def warp_yuv(self, y, u, v, rotation: torch.Tensor):
+        """One frame's uint8 planes + one (3, 3) rotation -> uint8
+        ``(wy, wu, wv)``."""
+        return warp_kernel.warp_yuv(
+            y, u, v, rotation, self.out_cam, self.in_cam, self.out_half,
+            self.in_half, (self.out_h, self.out_w))
 
 
 def encode(source: str, dest: Optional[str], traj: Trajectory,
@@ -782,6 +807,138 @@ def _batched_encode_loop(reader, sink, corrections, warp_batch_fn, options,
     reader.close()
 
 
+def _refuse_translation_upsample(up: float, translation_only: bool) -> None:
+    if up != 1.0 and translation_only:
+        raise ValueError(
+            "--upsample with --filter deshake is not supported (a "
+            "translation-only warp cannot scale); use the similarity or "
+            "rotation family")
+
+
+def encode_2d(source: str, dest: Optional[str], traj: Trajectory,
+              options: RenderOptions, profiler: Optional[StageProfiler] = None,
+              device="cuda") -> VideoMeta:
+    """Encode phase of the 2D families (similarity / deshake).
+
+    ``--upsample``: a similarity absorbs the scale exactly (``M @
+    diag(1/s, 1/s, 1)`` is still a similarity: same dx, dy and angle,
+    log-scale minus log s), so the canvas grows and the content upscales
+    in the same single resample. A translation cannot express scale, so
+    deshake refuses it.
+
+    On a card the similarity family warps through kernel K1
+    (``SimilarityWarper.warp_yuv_batch``) in the rotation family's
+    batched loop; deshake, and both families on the CPU, warp frame by
+    frame with their plain torch warps."""
+    from video_annotator_tpu_torch.models.deshake import (
+        deshake_corrections,
+        warp_frame_deshake,
+    )
+    from video_annotator_tpu_torch.models.similarity import (
+        SimilarityWarper,
+        similarity_corrections,
+        warp_frame_similarity,
+    )
+    from video_annotator_tpu_torch.ops.affine import compose_similarity
+
+    prof = profiler or StageProfiler()
+    dev = torch.device(device)
+    up = upsample_factor(options.upsample)
+    _refuse_translation_upsample(up, traj.kind != "similarity")
+    if traj.kind not in ("similarity", "translation"):
+        raise ValueError(f"encode_2d cannot handle kind {traj.kind!r}")
+    reader, meta, first, last = open_trimmed(source, options, dev)
+    out_w = int(meta.width * up) // 2 * 2
+    out_h = int(meta.height * up) // 2 * 2
+    if traj.kind == "similarity":
+        corrections = similarity_corrections(traj, options)
+        if up != 1.0:
+            # Compose with the pixel-centre-correct upscale sampler
+            # x_src = (x + 0.5) / s - 0.5: a pure similarity (translation
+            # c, log-scale -log s).
+            c = 0.5 * (1.0 / up - 1.0)
+            t_up = torch.tensor([c, c, 0.0, -np.log(up)], dtype=torch.float32)
+            corrections = compose_similarity(
+                torch.from_numpy(corrections), t_up).numpy()
+
+        def warp(y, u, v, p):
+            return warp_frame_similarity(y, u, v, p, interp=options.interp,
+                                         out_size=(out_h, out_w))
+    else:
+        corrections = deshake_corrections(traj, options)
+        warp = warp_frame_deshake
+
+    out_meta = VideoMeta(width=out_w, height=out_h, fps=output_fps(options, meta),
+                         num_frames=traj.num_frames)
+    writer = open_writer(None if options.no_output else dest, out_meta,
+                         encoder=options.encoder)
+    if traj.kind == "similarity" and dev.type == "cuda":
+        pwarper = SimilarityWarper(meta.width, meta.height, interp=options.interp,
+                                   out_size=(out_h, out_w))
+        _batched_encode_loop(reader, writer, SimilarityWarper.matrices(corrections),
+                             pwarper.warp_yuv_batch, options, prof, first, last,
+                             traj.num_frames, dev)
+        return out_meta
+
+    in_h2 = meta.height - meta.height % 2
+    in_w2 = meta.width - meta.width % 2
+
+    def warp_frames(ys, us, vs, corr):
+        """The encode loop's batch interface over a one-frame warp."""
+        out = []
+        for y, u, v, c in zip(ys, us, vs, corr):
+            planes = warp(y[:in_h2, :in_w2].to(torch.float32),
+                          u[: in_h2 // 2, : in_w2 // 2].to(torch.float32),
+                          v[: in_h2 // 2, : in_w2 // 2].to(torch.float32), c)
+            out.append(tuple(warp_kernel.to_u8(p) for p in planes))
+        return out
+
+    # One frame per batch: the loop pads a short batch with repeated
+    # frames, which a frame-by-frame warp would compute for nothing.
+    _batched_encode_loop(reader, writer, corrections, warp_frames,
+                         dataclasses.replace(options, warp_batch=1), prof,
+                         first, last, traj.num_frames, dev)
+    return out_meta
+
+
+def _analyse_family(family: str, source: str, options: RenderOptions, prof,
+                    device) -> Trajectory:
+    if family == "similarity":
+        from video_annotator_tpu_torch.models.similarity import analyse_similarity
+
+        return analyse_similarity(source, options, prof, device=device)
+    if family == "deshake":
+        from video_annotator_tpu_torch.models.deshake import analyse_deshake
+
+        return analyse_deshake(source, options, prof, device=device)
+    return analyse(source, options, prof, device=device)
+
+
+def check_family(options: RenderOptions) -> str:
+    """The family ``--filter`` names; raises for the options a 2D family
+    refuses (it has no camera attitude to level, no per-scanline poses,
+    no single-pass mode; a translation cannot scale)."""
+    family = FILTER_ALIASES.get(options.filter)
+    if family is None:
+        raise ValueError(f"unknown --filter {options.filter!r}; choose from "
+                         f"{sorted(FILTER_ALIASES)}")
+    # Checked again in encode_2d; refusing here spares the analyse phase.
+    _refuse_translation_upsample(upsample_factor(options.upsample),
+                                 family == "deshake")
+    if family != "rotation":
+        if options.horizon_lock:
+            raise ValueError(
+                "--horizon-lock needs the rotation family (--filter "
+                "rotation/dewobble); 2D families have no camera attitude to level")
+        if options.rolling_shutter:
+            raise ValueError("--rolling-shutter needs the rotation family "
+                             "(per-scanline camera poses)")
+        if options.streaming:
+            raise ValueError("--streaming is the rotation family's single-pass "
+                             "mode; 2D families use the two-phase path")
+    return family
+
+
 def render(source: str, dest: Optional[str],
            options: Optional[RenderOptions] = None,
            profiler: Optional[StageProfiler] = None, device="cuda") -> None:
@@ -789,8 +946,8 @@ def render(source: str, dest: Optional[str],
     or the single-pass ``--streaming`` render."""
     options = options or RenderOptions()
     prof = profiler or StageProfiler()
+    family = check_family(options)
     check_ported(options)
-    upsample_factor(options.upsample)
     if options.streaming:
         from video_annotator_tpu_torch.pipeline.streaming import render_streaming
 
@@ -801,7 +958,7 @@ def render(source: str, dest: Optional[str],
     needs_motion = options.stabilise != "none"
     tpath = trajectory_path(dest) if dest else None
     if needs_motion and not options.encode_only:
-        traj = analyse(source, options, prof, device=device)
+        traj = _analyse_family(family, source, options, prof, device)
         if tpath:
             traj.save(tpath)
     elif needs_motion:
@@ -810,15 +967,21 @@ def render(source: str, dest: Optional[str],
                 f"--encode-only but no trajectory at {tpath}; run analyse first")
         traj = Trajectory.load(tpath)
     else:
+        # No stabilisation: the family's identity trajectory sized to the clip.
         reader = open_reader(source, device="cpu")
         meta = reader.meta
         reader.close()
         first, last = _frame_range(meta, options)
         n = (last - first) if meta.num_frames else 0
-        traj = Trajectory(params=np.zeros((max(n, 0), KIND_DIMS["so3"])),
-                          kind="so3", fps=meta.fps, width=meta.width,
+        kind = {"rotation": "so3", "similarity": "similarity",
+                "deshake": "translation"}[family]
+        traj = Trajectory(params=np.zeros((max(n, 0), KIND_DIMS[kind])),
+                          kind=kind, fps=meta.fps, width=meta.width,
                           height=meta.height, source=source)
     if not options.analyse_only:
-        encode(source, dest, traj, options, prof, device=device)
+        if traj.kind == "so3":
+            encode(source, dest, traj, options, prof, device=device)
+        else:
+            encode_2d(source, dest, traj, options, prof, device=device)
     if options.verbose:
         print(prof.report())
