@@ -18,7 +18,11 @@ the last line is printed):
    against ``warp_similarity``); K3 and K2's pairs form on one 17-frame LK
    chunk at 1920x1440 with 200 corners per frame; K2's per-frame form on
    one 4K pair box-downsampled to 1920x1440 with the tracker's 200
-   corners.
+   corners. K1's per-tile-row rotation mode (the rolling-shutter form)
+   through every entry at the same 4K shapes with (T, 440, 3, 3) stacks,
+   each beside the time of the same launch with whole-frame rotations,
+   and once with a stack shorter than ceil(out_h / 8) (the clipped row
+   index).
 3. Renders through the CLI on 3840x2880 synthetic clips (64 frames unless
    stated), each with every launch count set to 0 just before it and read
    just after:
@@ -45,13 +49,42 @@ the last line is printed):
    g. ``--compare none,smooth,vidstab,deshake --no-cell-labels`` (8
       frames, a 9360x7040 canvas): the canvas size, and every cell of the
       first and last frames within one count of that cell's plain warp.
+   h. ``--stabilise smooth --rolling-shutter 0.75``: the trajectory within
+      1e-5 rad of (a)'s, every written frame within one count of the plain
+      per-tile-row warp under the same row rotations, the launches counted
+      under the ``rs`` kernel objects and none under the whole-frame ones;
+      then, outside the renders' launch counts, the library's one-frame
+      entries (``FrameWarper.warp_yuv``, ``FrameWarper.__call__``; no CLI
+      option reaches them with per-tile-row rotations, so the kernels
+      line gives their four kernel objects 0 launches) on the first,
+      middle and last frames under the same row rotations, each within
+      one count of the written frame;
+   i. ``--horizon-lock`` alone (no telemetry in a synthetic clip: up taken
+      as [0, -1, 0]): it analyses, the trajectory within 1e-5 rad of
+      (a)'s, the middle frame within one count of the plain warp under
+      the levelled corrections;
+   j. ``--compare none,smooth+lock,horizon,vidstab --no-cell-labels`` (8
+      frames): every cell of the first and last frames as in (g);
+   k. the gyro path: a telemetry-only MP4 (no video track) written for the
+      synthetic clip, GYRO at 400 Hz from its ground-truth rotations and
+      ACCL as gravity along a tilted up vector; ``render <that.mp4> out -a
+      --gyro --horizon-lock``: the trajectory within 0.1 deg RMS of the
+      ground truth, up within 0.1 deg of the tilted vector; then ``render
+      synthetic://... out --encode-only --stabilise smooth
+      --rolling-shutter 0.75 --horizon-lock`` from that trajectory file:
+      the first, middle and last frames within one count of the plain
+      per-tile-row warp.
    The deshake analyse and the compare render then run once more under
    torch.profiler, for the device's busy time and idle share.
 4. Where tracked analyse spends its time at 4K: host wall time per step
    and per span of ``Tracker.step``, then kernel launches and device time
    per step from torch.profiler; and the fixed-lag Kalman smoother of one
    streaming batch on the host (as the port runs it) and on the card;
-   and the per-frame parts of the 2D families alone on an idle card.
+   and the per-frame parts of the 2D families alone on an idle card; and
+   the telemetry parts: ``rs_row_rotations_gyro`` for 64 frames of 440
+   tile rows, and ``integrate_gyro`` over 240 000 samples (10 minutes at
+   400 Hz) on the card, with the largest angle between it and a float64
+   sequential scan of the same float32 inputs.
 5. A JSON line of per-kernel results, then the device line.
 """
 
@@ -71,7 +104,11 @@ import torch
 
 from video_annotator_tpu_torch import cli, so3
 from video_annotator_tpu_torch.camera import CameraModel, CameraPreset
-from video_annotator_tpu_torch.io.synthetic import SyntheticSource, render_frame
+from video_annotator_tpu_torch.io.synthetic import (
+    SyntheticSource,
+    render_frame,
+    write_telemetry_mp4,
+)
 from video_annotator_tpu_torch.io.video import open_reader
 from video_annotator_tpu_torch.models import deshake, similarity
 from video_annotator_tpu_torch.ops import cuda_lib, lk_kernel, stage, warp_kernel
@@ -79,13 +116,19 @@ from video_annotator_tpu_torch.ops.corners import detect_corners
 from video_annotator_tpu_torch.ops.affine import fit_similarity
 from video_annotator_tpu_torch.ops.lk import build_pyramid
 from video_annotator_tpu_torch.ops.phasecorr import phase_correlate
-from video_annotator_tpu_torch.ops.warp_plain import box_downsample
+from video_annotator_tpu_torch.ops.warp_plain import box_downsample, num_tile_rows
 from video_annotator_tpu_torch.pipeline import compare
 from video_annotator_tpu_torch.pipeline import render as trender
 from video_annotator_tpu_torch.pipeline import streaming
 from video_annotator_tpu_torch.pipeline.profiler import StageProfiler
 from video_annotator_tpu_torch.pipeline.trajectory import Trajectory, trajectory_path
+from video_annotator_tpu_torch.smoothing.gyro import integrate_gyro
 from video_annotator_tpu_torch.smoothing.kalman import smooth_rotations_kalman
+from video_annotator_tpu_torch.smoothing.rolling import (
+    rs_row_rotations,
+    rs_row_rotations_gyro,
+    scan_fractions,
+)
 
 W, H = 3840, 2880
 FRAMES = 64
@@ -94,6 +137,16 @@ SOURCE = f"synthetic://shaky?w={W}&h={H}&n={FRAMES}"
 DESHAKE_FRAMES = 32
 COMPARE_FRAMES = 8
 COMPARE_MODES = ("none", "smooth", "vidstab", "deshake")
+LOCK_MODES = ("none", "smooth+lock", "horizon", "vidstab")
+READOUT = 0.75  # --rolling-shutter: the readout as a fraction of 1 / fps
+RS_SHORT_BY = 10  # tile rows missing from the short stack of the clip case
+# World-up of the gyro path's telemetry in frame-0 camera coordinates: the
+# camera rolled 6 degrees and pitched 3.
+TILTED_UP = (math.sin(math.radians(6.0)) * math.cos(math.radians(3.0)),
+             -math.cos(math.radians(6.0)) * math.cos(math.radians(3.0)),
+             math.sin(math.radians(3.0)))
+MAX_UP_DEG = 0.1
+GYRO_SAMPLES = 240_000  # 10 minutes at 400 Hz
 F32_ATOL = 1e-3  # float32 sums in another order over values up to 255
 WARP_FRAMES = 4
 LK_CHUNK = 17
@@ -336,6 +389,111 @@ def phase_warp_one_frame(dev, results):
         results[name] = dict(max_abs_err=float(max_err), ms=ms, plain_ms=plain_ms, **b)
 
 
+def row_stacks(dev, lead: tuple, ny: int, seed: int) -> torch.Tensor:
+    """``lead + (ny, 3, 3)`` rotations: a 1 degree pose that drifts by
+    another degree down the frame, as a fast pan reads out."""
+    g = torch.Generator().manual_seed(seed)
+    base = torch.randn(lead + (1, 3), generator=g) * 0.02
+    drift = torch.randn(lead + (1, 3), generator=g) * 0.02
+    frac = (torch.arange(ny, dtype=torch.float32) / ny)[:, None]
+    return so3.exp(base + drift * frac).to(dev)
+
+
+def phase_warp_rs(dev, results):
+    """K1's per-tile-row rotation mode through its six entries at the
+    stock 4K shape, each against its plain version, timed in turns with
+    the same launch under whole-frame rotations (the mode's cost is that
+    difference: the bound counts the stack's bytes, under 0.1% of the
+    planes'), and the batch luma warp once with a short stack."""
+    warper = stock_cameras()
+    oh, ow = warper.out_h, warper.out_w
+    ny, nyc = num_tile_rows(oh), num_tile_rows(oh // 2)
+    cfg = SyntheticSource.from_uri(SOURCE).config
+    cam = cfg.camera()
+    rots_src = torch.from_numpy(cfg.rotations()[:WARP_FRAMES]).to(dev)
+    planes = [render_frame(cam, r) for r in rots_src]
+    ys = torch.stack([p[0] for p in planes])[:, None]
+    uv = torch.stack([torch.stack([p[1], p[2]]) for p in planes])
+    rows = row_stacks(dev, (WARP_FRAMES,), ny, 19)
+    rows_c = warp_kernel.chroma_row_rotations(rows, nyc)
+    luma = (warper.out_cam, warper.in_cam, (oh, ow), 0.0)
+    chroma = (warper.out_half, warper.in_half, (oh // 2, ow // 2), 128.0)
+    one = warp_kernel.ONE_FRAME_KERNELS
+
+    def u8(src, rot, geometry, **kw):
+        return warp_kernel.warp_planes_u8(src, rot, *geometry, **kw)
+
+    def frame_f32(src, rot, geometry):
+        return warp_kernel.warp_frame_f32(src[0], rot, *geometry)[None]
+
+    def planes_f32(src, rot, geometry):
+        return warp_kernel.warp_planes_f32(src, rot, *geometry)
+
+    # (rs kernel object, its whole-frame twin, entry, plain, src, per-row
+    # rotations, geometry, operations per tap)
+    u8_plain = lambda src, rot, geo: warp_kernel.warp_planes_u8_plain(src, rot, *geo)
+    f32_plain = lambda src, rot, geo: warp_kernel.warp_planes_f32_plain(src, rot, *geo)
+    cases = (
+        ("warp_luma_rs", "warp_luma", u8, u8_plain, ys, rows, luma, WARP_TAP_OPS),
+        ("warp_chroma_rs", "warp_chroma", u8, u8_plain, uv, rows_c, chroma, WARP_TAP_OPS),
+        ("warp_yuv_luma_rs", None, lambda *a: u8(*a, kernels=one), u8_plain,
+         ys[:1], rows[:1], luma, WARP_TAP_OPS),
+        ("warp_yuv_chroma_rs", None, lambda *a: u8(*a, kernels=one), u8_plain,
+         uv[:1], rows_c[:1], chroma, WARP_TAP_OPS),
+        ("warp_frame_f32_rs", "warp_frame_f32", frame_f32, f32_plain,
+         ys[0].to(torch.float32), rows[0], luma, WARP_TAP_OPS_F32),
+        ("warp_planes_f32_rs", "warp_planes_f32", planes_f32, f32_plain,
+         uv[0].to(torch.float32), rows_c[0], chroma, WARP_TAP_OPS_F32),
+    )
+    for name, twin, entry, plain, src, rot, geo, tap_ops in cases:
+        kernel = cuda_lib.KERNELS[name]
+        before = kernel.launches
+        got = entry(src, rot, geo)
+        check(kernel.launches == before + 1, f"{name} was not the kernel launched")
+        want = plain(src, rot, geo)
+        torch.cuda.synchronize()
+        if got.dtype == torch.uint8:
+            max_err, equal = u8_agreement(got, want)
+            agrees = max_err <= 1 and equal >= MIN_EQUAL
+            said = f"max |diff| {max_err} count, equal {equal:.6f}"
+        else:
+            max_err = float((got - want).abs().max())
+            agrees = got.shape == want.shape and max_err <= F32_ATOL
+            said = f"max |diff| {max_err:.2e}"
+        whole = rot[..., 0, :, :].contiguous()  # one rotation per frame
+        whole_a = cuda_ms(lambda: entry(src, whole, geo), 20)
+        ms_a = cuda_ms(lambda: entry(src, rot, geo), 20)
+        ms_b = cuda_ms(lambda: entry(src, rot, geo), 20)
+        whole_b = cuda_ms(lambda: entry(src, whole, geo), 20)
+        ms, whole_ms = (ms_a + ms_b) / 2, (whole_a + whole_b) / 2
+        plain_ms = cuda_ms(lambda: plain(src, rot, geo), 3, 1)
+        item = 1 if got.dtype == torch.uint8 else 4
+        pixels = got.numel() // src.shape[-3]
+        b = bound(item * (src.numel() + got.numel()) + 4 * rot.numel(),
+                  pixels * (warp_map_ops(geo[1]) + src.shape[-3] * tap_ops))
+        log(f"[K1 {name}] {tuple(src.shape)} with {tuple(rot.shape)} rotations -> "
+            f"{tuple(got.shape)}: {said}; kernel {ms:.3f} ms ({ms_a:.3f}, {ms_b:.3f}), "
+            f"the same launch with whole-frame rotations {whole_ms:.3f} ms "
+            f"({whole_a:.3f}, {whole_b:.3f}): ratio {ms / whole_ms:.4f}; plain "
+            f"{plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        check(agrees, f"{name} disagrees with plain")
+        if twin is not None:
+            log(f"[K1 {name}] {twin} in its own phase: {results[twin]['ms']:.3f} ms")
+        results[name] = dict(max_abs_err=float(max_err), ms=ms, plain_ms=plain_ms, **b)
+
+    short = rows[:, : ny - RS_SHORT_BY].contiguous()
+    got = u8(ys, short, luma)
+    want = u8_plain(ys, short, luma)
+    full = u8(ys, torch.cat([short, short[:, -1:].expand(-1, RS_SHORT_BY, -1, -1)], 1), luma)
+    torch.cuda.synchronize()
+    max_err, equal = u8_agreement(got, want)
+    log(f"[K1 warp_luma_rs] a stack of {ny - RS_SHORT_BY} rotations for {ny} tile rows: "
+        f"max |diff| {max_err} count, equal {equal:.6f} against plain; equal to the "
+        f"stack padded with its last rotation: {torch.equal(got, full)}")
+    check(max_err <= 1 and equal >= MIN_EQUAL and torch.equal(got, full),
+          "the clipped row index disagrees")
+
+
 def lk_chunk(dev):
     """A 17-frame chunk as the paired analyse sees it: 4K frames
     box-downsampled to 1920x1440, 200 corners per frame detected at
@@ -455,6 +613,7 @@ def rms_vs_truth(traj: Trajectory) -> float:
 # ``render_compare`` holds its own references to all three analysers.
 TIMED = (
     (trender, "analyse", "analyse", 2),
+    (trender, "analyse_gyro", "analyse", 2),
     (trender, "encode", "encode", 4),
     (trender, "encode_2d", "encode", 4),
     (streaming, "render_streaming", "streaming", 3),
@@ -576,6 +735,35 @@ def check_frame_vs_plain(dest, traj, dev):
         check(err <= 1, f"written frame {t} plane {name} differs from the plain warp")
 
 
+def check_level_frame(dest, traj, dev):
+    """The ``--horizon-lock`` render (stabilise none): its size, which has
+    no stabilise buffer, and the middle frame against the plain warp under
+    the levelled corrections."""
+    opts = trender.RenderOptions(horizon_lock=True, preset=CameraPreset(PRESET))
+    in_cam, out_cam = trender.build_cameras(trender.VideoMeta(W, H, 30, FRAMES), opts)
+    warper = trender.FrameWarper(in_cam, out_cam)
+    meta = open_reader(dest).meta
+    log(f"[horizon-lock] output {meta.width}x{meta.height}, {meta.num_frames} frames")
+    check((meta.width, meta.height, meta.num_frames) == (warper.out_w, warper.out_h, FRAMES),
+          "[horizon-lock] output has the wrong size")
+    t = FRAMES // 2
+    corr = trender.compute_corrections(traj, opts, dev)
+    plain = trender.compute_corrections(
+        traj, trender.RenderOptions(preset=CameraPreset(PRESET)), dev)
+    log(f"[horizon-lock] largest correction {trender.max_rotation_deg(corr):.3f} deg "
+        f"(without the lock {trender.max_rotation_deg(plain):.3f} deg)")
+    check(trender.max_rotation_deg(corr) > 0.01, "[horizon-lock] the lock corrected nothing")
+    rot = torch.from_numpy(corr[t:t + 1]).to(dev)
+    y, u, v = source_frame(dev, SOURCE, t)
+    want_y = warp_kernel.warp_planes_u8_plain(
+        y[None, None], rot, warper.out_cam, warper.in_cam, (warper.out_h, warper.out_w))[0, 0]
+    want_uv = warp_kernel.warp_planes_u8_plain(
+        torch.stack([u, v])[None], rot, warper.out_half, warper.in_half,
+        (warper.out_h // 2, warper.out_w // 2), 128.0)[0]
+    check_planes("horizon-lock", t, written_frames(dest, (t,))[t],
+                 (want_y, want_uv[0], want_uv[1]), dev)
+
+
 def check_same_frames(name, got_path, want_path, dev):
     """The first, middle and last frames within one count, >= 99.9% equal."""
     which = (0, FRAMES // 2, FRAMES - 1)
@@ -657,32 +845,35 @@ def check_deshake_frames(dest, src, dev):
         check_planes(f"deshake, plain warp on {where.type}", t, got, want, dev)
 
 
-def check_compare_cells(dest, src, returned, dev):
+def check_compare_cells(dest, src, returned, dev, modes=COMPARE_MODES):
     """The canvas size, and each cell of the first and last frames against
     the plain warp of that cell from the trajectories the grid's own
     analysers returned."""
     n = COMPARE_FRAMES
     warper = stock_cameras()
     ch, cw = warper.out_h, warper.out_w
-    rows, cols = compare.comparison_grid_size(len(COMPARE_MODES))
+    rows, cols = compare.comparison_grid_size(len(modes))
     meta = open_reader(dest).meta
     log(f"[compare] canvas {meta.width}x{meta.height}, {meta.num_frames} frames, "
         f"{rows}x{cols} cells of {cw}x{ch}")
     check((meta.width, meta.height, meta.num_frames) == (cw * cols, ch * rows, n)
           and (rows, cols) == (2, 2), "[compare] canvas has the wrong size")
 
-    def with_stabilise(mode):
-        return trender.RenderOptions(stabilise=mode, preset=CameraPreset(PRESET))
+    def corrections(mode):
+        """(family, per-frame corrections) of one cell, from its mode."""
+        family, stabilise, lock = compare._parse_mode(mode)
+        opts = trender.RenderOptions(stabilise=stabilise, horizon_lock=lock,
+                                     preset=CameraPreset(PRESET))
+        if family == "rotation":
+            corr = trender.compute_corrections(returned["analyse"], opts, dev)
+        elif family == "similarity":
+            corr = similarity.similarity_corrections(returned["analyse_similarity"], opts)
+        else:
+            corr = deshake.deshake_corrections(returned["analyse_deshake"], opts)
+        check(len(corr) == n, f"[compare] the trajectory of {mode} has the wrong length")
+        return family, corr
 
-    rot_none = trender.compute_corrections(returned["analyse"], with_stabilise("none"), dev)
-    rot_smooth = trender.compute_corrections(returned["analyse"],
-                                             with_stabilise("smooth"), dev)
-    sim = similarity.similarity_corrections(returned["analyse_similarity"],
-                                            with_stabilise("smooth"))
-    shake = deshake.deshake_corrections(returned["analyse_deshake"],
-                                        with_stabilise("smooth"))
-    check(len(rot_none) == len(rot_smooth) == len(sim) == len(shake) == n,
-          "[compare] a trajectory has the wrong length")
+    per_mode = [corrections(m) for m in modes]
 
     def rotation_cell(planes, rot):
         rot = torch.from_numpy(rot).to(dev)
@@ -705,35 +896,112 @@ def check_compare_cells(dest, src, returned, dev):
             out.append(cell)
         return out
 
+    def cell(planes, family, corr):
+        if family == "rotation":
+            return rotation_cell(planes, corr)
+        warp = (similarity.warp_frame_similarity if family == "similarity"
+                else deshake.warp_frame_deshake)
+        return padded(warp(*planes, torch.from_numpy(corr).to(dev)))
+
     for t, canvas in written_frames(dest, (0, n - 1)).items():
         planes = float_frame(dev, src, t)
-        cells = (
-            rotation_cell(planes, rot_none[t]),
-            rotation_cell(planes, rot_smooth[t]),
-            padded(similarity.warp_frame_similarity(
-                *planes, torch.from_numpy(sim[t]).to(dev))),
-            padded(deshake.warp_frame_deshake(*planes, torch.from_numpy(shake[t]).to(dev))),
-        )
-        for i, (mode, want) in enumerate(zip(COMPARE_MODES, cells)):
+        cells = [cell(planes, family, corr[t]) for family, corr in per_mode]
+        for i, (mode, want) in enumerate(zip(modes, cells)):
             r, c = divmod(i, cols)
             got = tuple(p[r * (ch // s):(r + 1) * (ch // s), c * (cw // s):(c + 1) * (cw // s)]
                         for p, s in zip(canvas, (1, 2, 2)))
             check_planes(f"compare cell {mode}", t, got, want, dev)
 
 
+def scanline_rotations(traj, opts, dev):
+    """(T, ny, 3, 3) luma and (T, nyc, 3, 3) chroma row rotations of a
+    ``--rolling-shutter`` render of ``traj`` by the velocity model, from
+    the library's parts (not through ``encode``)."""
+    warper = stock_cameras()
+    corr = torch.from_numpy(trender.compute_corrections(traj, opts, dev)).to(dev)
+    fractions = scan_fractions(warper.out_cam, warper.in_cam,
+                               num_tile_rows(warper.out_h)).to(dev)
+    rows = rs_row_rotations(corr, torch.from_numpy(traj.rotations()).to(dev),
+                            opts.rolling_shutter, fractions)
+    return rows, warp_kernel.chroma_row_rotations(rows, num_tile_rows(warper.out_h // 2))
+
+
+def check_frames_vs_plain(name, dest, rot_y, rot_c, which, dev):
+    """The written frames ``which`` against the plain warp of their source
+    frames under ``rot_y[t]`` (luma) and ``rot_c[t]`` (chroma): one (3, 3)
+    each, or per-tile-row stacks. Within one count, 99.9% equal."""
+    warper = stock_cameras()
+    oh, ow = warper.out_h, warper.out_w
+    worst, least = 0, 1.0
+    reader = open_reader(dest)
+    for t, planes in enumerate(reader):
+        if t not in which:
+            continue
+        y, u, v = source_frame(dev, SOURCE, t)
+        want_y = warp_kernel.warp_planes_u8_plain(
+            y[None, None], rot_y[t:t + 1], warper.out_cam, warper.in_cam, (oh, ow), 0.0)[0, 0]
+        want_uv = warp_kernel.warp_planes_u8_plain(
+            torch.stack([u, v])[None], rot_c[t:t + 1], warper.out_half, warper.in_half,
+            (oh // 2, ow // 2), 128.0)[0]
+        for plane, got, want in zip("yuv", planes, (want_y, want_uv[0], want_uv[1])):
+            err, equal = u8_agreement(torch.from_numpy(np.array(got)).to(dev), want)
+            worst, least = max(worst, err), min(least, equal)
+            check(tuple(got.shape) == tuple(want.shape) and err <= 1 and equal >= MIN_EQUAL,
+                  f"[{name}] frame {t} plane {plane} differs from its plain warp: "
+                  f"max |diff| {err}, equal {equal:.6f}")
+    reader.close()
+    log(f"[{name}] {len(which)} written frames against their plain warps: max |diff| "
+        f"{worst} count, least equal share {least:.6f}")
+
+
+def check_one_frame_rs(dest, rot_y, which, dev):
+    """The library's one-frame entries (no CLI option reaches them with
+    per-tile-row rotations: ``--compare`` refuses ``--rolling-shutter``):
+    ``FrameWarper.warp_yuv`` and ``FrameWarper.__call__`` on the frames
+    ``which`` of the clip under the row rotations of the render ``dest``.
+    The uint8 entry must reproduce the written frame, the float entry
+    round to it. A check of the entries, not a render: its launches are
+    logged here and stay out of the renders' counts."""
+    warper = stock_cameras()
+    written = written_frames(dest, which)
+    for k in cuda_lib.KERNELS.values():
+        k.launches = 0
+    for t in which:
+        planes = source_frame(dev, SOURCE, t)
+        check_planes("one-frame rs, uint8", t, written[t],
+                     warper.warp_yuv(*planes, rot_y[t]), dev)
+        check_planes("one-frame rs, float", t, written[t],
+                     warper(*(p.to(torch.float32) for p in planes), rot_y[t]), dev)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+    log(f"[one-frame rs] FrameWarper.warp_yuv and FrameWarper.__call__ on "
+        f"{len(which)} frames, outside every render: launches {launches}")
+    for name in ("warp_yuv_luma_rs", "warp_yuv_chroma_rs", "warp_frame_f32_rs",
+                 "warp_planes_f32_rs"):
+        check(launches[name] == len(which), f"[one-frame rs] {name} was not launched")
+
+
+def up_angle_deg(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+    return math.degrees(math.acos(min(1.0, max(-1.0, cos))))
+
+
 def phase_renders(dev, label):
-    """The seven renders; returns the launch counts summed over them."""
+    """The renders; returns the launch counts summed over them."""
     total = {n: 0 for n in cuda_lib.KERNELS}
     warp_stage = ("warp_luma", "warp_chroma", "stage")
     tmp = tempfile.mkdtemp(prefix="vat_torch_smoke_")
     stock = ["--stabilise", "smooth", "--preset", PRESET]
     tracked = stock + ["--analysis-mode", "tracked"]
 
-    def run(name, dest, flags, needs, source=SOURCE, **kw):
+    def run(name, dest, flags, needs, source=SOURCE, counts=None, **kw):
         launches, mode, returned, times = drive(
             name, ["render", source, dest] + flags, label, needs, **kw)
         for n, c in launches.items():
             total[n] += c
+        if counts is not None:
+            counts.update(launches)
         return mode, returned, times
 
     try:
@@ -804,6 +1072,65 @@ def phase_renders(dev, label):
         trace_render("compare", ["render", src, grid] + flags, COMPARE_FRAMES,
                      times["wall"])
         os.remove(grid)
+
+        flags = ["--compare", ",".join(LOCK_MODES), "--no-cell-labels", "--preset", PRESET]
+        _, returned, _ = run(
+            "compare-lock", grid, flags,
+            ("warp_frame_f32", "warp_planes_f32", "warp_yuv_luma", "warp_yuv_chroma",
+             "stage", "lk_level", "lk_level_frame"),
+            source=src, frames=COMPARE_FRAMES, grid=True)
+        check_compare_cells(grid, src, returned, dev, modes=LOCK_MODES)
+        os.remove(grid)
+
+        rs_kernels = ("warp_luma_rs", "warp_chroma_rs")
+        rolling = os.path.join(tmp, "rolling.y4m")
+        rs_flags = ["--rolling-shutter", str(READOUT)]
+        launches = {}
+        run("rolling-shutter", rolling, stock + rs_flags,
+            rs_kernels + ("stage", "lk_level"), counts=launches)
+        check(launches["warp_luma"] == launches["warp_chroma"] == 0,
+              "[rolling-shutter] a whole-frame warp was launched")
+        check_output_size("rolling-shutter", rolling)
+        check_same_trajectory("rolling-shutter", Trajectory.load(trajectory_path(rolling)),
+                              traj_two)
+        rot_y, rot_c = scanline_rotations(traj_two, stock_options(rolling_shutter=READOUT), dev)
+        check_frames_vs_plain("rolling-shutter", rolling, rot_y, rot_c, range(FRAMES), dev)
+        check_one_frame_rs(rolling, rot_y, (0, FRAMES // 2, FRAMES - 1), dev)
+        os.remove(rolling)
+
+        level = os.path.join(tmp, "level.y4m")
+        run("horizon-lock", level, ["--horizon-lock", "--preset", PRESET],
+            warp_stage + ("lk_level",))
+        traj_level = Trajectory.load(trajectory_path(level))
+        check(traj_level.up0 is None, "[horizon-lock] a synthetic clip has no telemetry")
+        check_same_trajectory("horizon-lock", traj_level, traj_two)
+        check_level_frame(level, traj_level, dev)
+        os.remove(level)
+
+        telemetry = os.path.join(tmp, "telemetry.mp4")
+        cfg = SyntheticSource.from_uri(SOURCE).config
+        write_telemetry_mp4(telemetry, cfg, TILTED_UP)
+        gyro = os.path.join(tmp, "gyro.y4m")
+        run("gyro", gyro, ["-a", "--gyro", "--horizon-lock"], (), source=telemetry)
+        traj_gyro = Trajectory.load(trajectory_path(gyro))
+        rms = rms_vs_truth(traj_gyro)
+        off = up_angle_deg(traj_gyro.up0, TILTED_UP)
+        log(f"[gyro] {os.path.getsize(telemetry)} bytes of telemetry, "
+            f"{traj_gyro.num_frames} frames at {float(traj_gyro.fps):.2f} fps: trajectory "
+            f"RMS vs ground truth {rms:.4f} deg; up {np.round(traj_gyro.up0, 5).tolist()} is "
+            f"{off:.4f} deg from the telemetry's")
+        check(traj_gyro.num_frames == FRAMES and rms < MAX_RMS_DEG, "gyro trajectory is off")
+        check(off < MAX_UP_DEG, "the gravity estimate is off")
+        check(not os.path.exists(gyro), "[gyro] -a wrote frames")
+        os.replace(trajectory_path(gyro), trajectory_path(rolling))
+        lock_flags = stock + rs_flags + ["--encode-only", "--horizon-lock"]
+        run("gyro-rolling-shutter", rolling, lock_flags, rs_kernels)
+        check_output_size("gyro-rolling-shutter", rolling)
+        rot_y, rot_c = scanline_rotations(
+            traj_gyro, stock_options(rolling_shutter=READOUT, horizon_lock=True), dev)
+        check_frames_vs_plain("gyro-rolling-shutter", rolling, rot_y, rot_c,
+                              (0, FRAMES // 2, FRAMES - 1), dev)
+        os.remove(rolling)
         return total
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -936,6 +1263,78 @@ def phase_2d_parts(dev, label):
         log(f"    {what}: {host_ms(fn):.3f} ms")
 
 
+def phase_telemetry_parts(dev, label):
+    """The telemetry layers alone on the card: the scanline poses of one
+    64-frame clip from its gyro stream, and the gyro integration of a
+    10-minute clip (240 000 samples at 400 Hz, 18 000 frames) by the
+    prefix product, against a float64 sequential scan of the same float32
+    samples on the host."""
+    warper = stock_cameras()
+    ny = num_tile_rows(warper.out_h)
+    fractions = scan_fractions(warper.out_cam, warper.in_cam, ny).to(dev)
+    g = torch.Generator().manual_seed(23)
+    n = 1000  # 2.5 s at 400 Hz
+    ts = (torch.arange(n, dtype=torch.float32) / 400.0).to(dev)
+    omega = (torch.randn((n, 3), generator=g) * 0.5).to(dev)
+    frame_ts = (torch.arange(FRAMES, dtype=torch.float32) / 30.0).to(dev)
+    corr = so3.exp(torch.randn((FRAMES, 3), generator=g) * 0.02).to(dev)
+    rows = rs_row_rotations_gyro(corr, omega, ts, frame_ts, READOUT / 30.0, fractions)
+    host = rs_row_rotations_gyro(corr.cpu(), omega.cpu(), ts.cpu(), frame_ts.cpu(),
+                                 READOUT / 30.0, fractions.cpu())
+    err = float((rows.cpu() - host).abs().max())
+    ms = host_ms(lambda: rs_row_rotations_gyro(corr, omega, ts, frame_ts,
+                                               READOUT / 30.0, fractions))
+    log(f"[telemetry parts] {label}: rs_row_rotations_gyro, {FRAMES} frames x {ny} tile "
+        f"rows from {n} gyro samples: {ms:.3f} ms per call (host wall, synchronised, idle "
+        f"card); max |diff| {err:.2e} against the same call on CPU tensors")
+    check(tuple(rows.shape) == (FRAMES, ny, 3, 3) and err <= 1e-4,
+          "rs_row_rotations_gyro differs between card and host")
+
+    s = GYRO_SAMPLES
+    t = torch.arange(s, dtype=torch.float64) / 400.0
+    # A hand-held camera: slow sways plus shake, rad/s.
+    omega = torch.stack([0.4 * torch.sin(t * 1.3) + 0.2 * torch.sin(t * 17.0),
+                         0.3 * torch.cos(t * 0.7) + 0.2 * torch.sin(t * 23.0 + 1.0),
+                         0.2 * torch.sin(t * 2.9 + 0.5)], dim=-1).to(torch.float32)
+    omega = omega + torch.randn((s, 3), generator=g) * 0.05
+    ts = t.to(torch.float32)
+    frame_ts = torch.arange(int(s / 400.0 * 30.0), dtype=torch.float32) / 30.0
+    card = integrate_gyro(omega.to(dev), ts.to(dev), frame_ts.to(dev))
+    ms = host_ms(lambda: integrate_gyro(omega.to(dev), ts.to(dev), frame_ts.to(dev)), 3)
+    t0 = time.perf_counter()
+    scan = sequential_integrate(omega, ts, frame_ts)
+    scan_s = time.perf_counter() - t0
+    angle = so3.log(so3.matmul(card.cpu().double(), so3.transpose(scan))).norm(dim=-1)
+    unit = (so3.matmul(card, so3.transpose(card))
+            - torch.eye(3, device=dev)).abs().max()
+    log(f"[telemetry parts] integrate_gyro, {s} samples -> {len(frame_ts)} frames: "
+        f"{ms:.3f} ms per call on the card, uploads included (host wall, synchronised); "
+        f"the float64 sequential scan on the host {scan_s:.2f} s; largest angle between "
+        f"them {math.degrees(float(angle.max())):.6f} deg (at the last frame "
+        f"{math.degrees(float(angle[-1])):.6f}); largest |R R^T - I| {float(unit):.2e}")
+    check(math.degrees(float(angle.max())) < 0.05,
+          "the prefix product drifted from the sequential scan")
+
+
+def sequential_integrate(omega, sample_ts, frame_ts) -> torch.Tensor:
+    """``integrate_gyro`` as a sequential scan in float64 on the host, over
+    the same float32 samples: R_{k+1} = R_k exp(w_k dt_k) one step after
+    another, then the same resample and rebase."""
+    omega, sample_ts, frame_ts = (x.double() for x in (omega, sample_ts, frame_ts))
+    steps = so3.exp(omega[:-1] * torch.diff(sample_ts)[:, None]).numpy()
+    rs = np.empty((len(sample_ts), 3, 3))
+    rs[0] = np.eye(3)
+    for k, step in enumerate(steps):
+        rs[k + 1] = rs[k] @ step
+    rs = torch.from_numpy(rs)
+    idx = torch.clamp(torch.searchsorted(sample_ts, frame_ts, right=True) - 1,
+                      0, len(sample_ts) - 2)
+    t0, t1 = sample_ts[idx], sample_ts[idx + 1]
+    alpha = torch.clamp((frame_ts - t0) / torch.clamp(t1 - t0, min=1e-9), 0.0, 1.0)
+    r_frames = so3.slerp(rs[idx], rs[idx + 1], alpha)
+    return so3.matmul(so3.transpose(r_frames[0])[None], r_frames)
+
+
 def trace_steps(tracker, frames, wall_ms):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -987,6 +1386,7 @@ def main(argv=None) -> int:
     phase_warp(dev, results)
     phase_warp_float(dev, results)
     phase_warp_one_frame(dev, results)
+    phase_warp_rs(dev, results)
     phase_stage_lk(dev, results)
     phase_lk_frame(dev, results)
     log(f"[kernels] times above measured on {label}")
@@ -994,6 +1394,7 @@ def main(argv=None) -> int:
     phase_tracked_profile(dev, label)
     phase_kalman_window(dev, label)
     phase_2d_parts(dev, label)
+    phase_telemetry_parts(dev, label)
     log(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, k in cuda_lib.KERNELS.items():

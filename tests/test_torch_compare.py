@@ -39,7 +39,7 @@ def test_comparison_grid_size_matches_jax(n):
 def test_parse_mode_matches_jax(mode):
     family, stabilise, lock = jcompare._parse_mode(mode)
     assert not lock
-    assert tcompare._parse_mode(mode) == (family, stabilise)
+    assert tcompare._parse_mode(mode) == (family, stabilise, lock)
 
 
 @pytest.mark.parametrize("mode,match", [
@@ -54,10 +54,12 @@ def test_parse_mode_rejects_what_jax_rejects(mode, match):
 
 
 @pytest.mark.parametrize("mode", ["smooth+lock", "horizon", "none+lock", "dewobble+lock"])
-def test_parse_mode_horizon_cells_are_not_ported(mode):
-    assert jcompare._parse_mode(mode)[2] is True
-    with pytest.raises(NotImplementedError, match="ROADMAP.*horizon"):
-        tcompare._parse_mode(mode)
+def test_parse_mode_horizon_cells_match_jax(mode):
+    """The horizon-locked cells, which raised until ``smoothing/horizon.py``
+    was ported, now parse as in the JAX package, with the lock flag set."""
+    want = jcompare._parse_mode(mode)
+    assert want[2] is True
+    assert tcompare._parse_mode(mode) == want
 
 
 def to_port(jtraj):
@@ -202,7 +204,7 @@ def test_render_compare_rejects_rolling_shutter(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(interp="bicubic"), dict(horizon_lock=True), dict(crop_rect="64:48"),
+    dict(interp="bicubic"), dict(projection="equirect"), dict(crop_rect="64:48"),
     dict(prefilter="auto"), dict(debug=True),
 ])
 def test_render_compare_refuses_unported_options(kw):
@@ -228,7 +230,7 @@ def test_cli_compare_reaches_render_compare(monkeypatch):
 def test_cli_reports_an_unported_compare_mode(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     rc = tcli.main(["render", "synthetic://shaky?w=96&h=64&n=2", "grid.y4m",
-                    "--compare", "none,horizon"])
+                    "--compare", "none,horizon", "--interp", "bicubic"])
     assert rc == 1
     assert "ROADMAP" in capsys.readouterr().err
 

@@ -133,6 +133,118 @@ def test_one_frame_warp_kernel_matches_the_similarity_warp(cuda, out_size):
         assert_u8_close(gp.cpu(), pp)
 
 
+def row_stack(generator, lead, ny, device):
+    """``lead + (ny, 3, 3)`` rotations that drift down the frame."""
+    base = torch.randn(lead + (1, 3), generator=generator) * 0.03
+    drift = torch.randn(lead + (1, 3), generator=generator) * 0.03
+    frac = (torch.arange(ny, dtype=torch.float32) / max(ny, 1))[:, None]
+    return so3.exp(base + drift * frac).to(device)
+
+
+@pytest.mark.parametrize("w,h,frames", [(320, 240, 3), (3840, 2880, 2)])
+@pytest.mark.parametrize("short_by", [0, 5])
+def test_rs_warp_entries_match_plain(cuda, w, h, frames, short_by):
+    """K1's per-tile-row rotation mode through every entry, at a small
+    shape and at the 4K shape, each against its plain version on the same
+    card tensors: uint8 within one count and 99.9% equal, float within
+    1e-3. ``short_by``: a stack shorter than ceil(out_h / 8), so the
+    kernel's clip of the row index is exercised. Each launch is counted
+    under the entry's ``rs`` kernel object and under no other."""
+    in_cam = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (w, h))
+    out_cam = get_output_camera(in_cam, zoom=1.0 / 1.2)
+    warper = trender.FrameWarper(in_cam, out_cam)
+    oh, ow = warper.out_h, warper.out_w
+    ny = -(-oh // 8) - short_by
+    g = torch.Generator().manual_seed(7)
+    ys = torch.randint(0, 256, (frames, h, w), generator=g, dtype=torch.uint8).to(cuda)
+    us, vs = (torch.randint(0, 256, (frames, h // 2, w // 2), generator=g,
+                            dtype=torch.uint8).to(cuda) for _ in range(2))
+    rots = row_stack(g, (frames,), ny, cuda)
+    rots_c = warp_kernel.chroma_row_rotations(rots, -(-(oh // 2) // 8))
+    counts = lambda: {n: k.launches for n, k in warp_kernel.cuda_lib.KERNELS.items()}
+
+    def launched(before):
+        return {n: c - before[n] for n, c in counts().items() if c != before[n]}
+
+    before = counts()
+    got = warper.warp_yuv_batch(ys, us, vs, rots)
+    assert launched(before) == {"warp_luma_rs": 1, "warp_chroma_rs": 1}
+    want_y = warp_kernel.warp_planes_u8_plain(ys[:, None], rots, out_cam, in_cam, (oh, ow))
+    want_c = warp_kernel.warp_planes_u8_plain(
+        torch.stack([us, vs], dim=1), rots_c, warper.out_half, warper.in_half,
+        (oh // 2, ow // 2), 128.0)
+    torch.cuda.synchronize()
+    for t, (gy, gu, gv) in enumerate(got):
+        assert_u8_close(gy, want_y[t, 0])
+        assert_u8_close(gu, want_c[t, 0])
+        assert_u8_close(gv, want_c[t, 1])
+
+    before = counts()
+    one = warper.warp_yuv(ys[0], us[0], vs[0], rots[0])
+    assert launched(before) == {"warp_yuv_luma_rs": 1, "warp_yuv_chroma_rs": 1}
+    for gp, bp in zip(one, got[0]):
+        assert torch.equal(gp, bp)
+
+    before = counts()
+    planes = (ys[0].float(), us[0].float(), vs[0].float())
+    fy, fu, fv = warper(*planes, rots[0])
+    assert launched(before) == {"warp_frame_f32_rs": 1, "warp_planes_f32_rs": 1}
+    want_fy = warp_kernel.warp_planes_f32_plain(planes[0][None], rots[0], out_cam, in_cam,
+                                                (oh, ow))[0]
+    want_fc = warp_kernel.warp_planes_f32_plain(
+        torch.stack(planes[1:]), rots_c[0], warper.out_half, warper.in_half,
+        (oh // 2, ow // 2), 128.0)
+    torch.cuda.synchronize()
+    assert float((fy - want_fy).abs().max()) <= 1e-3
+    assert float((torch.stack([fu, fv]) - want_fc).abs().max()) <= 1e-3
+    # Tile row 0 is the whole-frame warp under the first rotation; a tile
+    # row in the middle of the frame (the last ones show only border) is not.
+    whole = warper.warp_yuv_batch(ys, us, vs, rots[:, 0])
+    mid = oh // 16 * 8
+    assert torch.equal(whole[0][0][:8], got[0][0][:8])
+    assert not torch.equal(whole[0][0][mid:mid + 8], got[0][0][mid:mid + 8])
+
+
+def test_integrate_gyro_on_card_matches_cpu(cuda):
+    """The prefix product on the card against the same on the CPU: the
+    same float32 products in the same order, up to the devices' exp."""
+    from video_annotator_tpu_torch.smoothing.gyro import integrate_gyro
+
+    g = torch.Generator().manual_seed(9)
+    n = 4000
+    ts = torch.arange(n, dtype=torch.float32) / 400.0
+    omega = torch.randn((n, 3), generator=g) * 0.5
+    frame_ts = torch.arange(300, dtype=torch.float32) / 30.0 + 0.004
+    host = integrate_gyro(omega, ts, frame_ts)
+    card = integrate_gyro(omega.to(cuda), ts.to(cuda), frame_ts.to(cuda)).cpu()
+    rel = so3.log(so3.matmul(card, so3.transpose(host))).norm(dim=-1)
+    assert math.degrees(float(rel.max())) <= 0.01
+
+
+def test_rolling_shutter_render_on_card_matches_cpu(cuda, tmp_path):
+    """``--rolling-shutter --horizon-lock`` from one trajectory on both
+    devices: the card's frames (through K1's per-tile-row mode) within one
+    count of the CPU's (its plain version)."""
+    from video_annotator_tpu_torch.io.video import open_reader
+
+    src = "synthetic://shaky?w=640&h=480&n=8&seed=3"
+    opts = dict(stabilise="smooth", stabilise_radius=3, rolling_shutter=0.75,
+                horizon_lock=True, warp_batch=4,
+                preset=CameraPreset.GOPRO_H4B_WIDE43_MEASURED)
+    dest = {d: str(tmp_path / f"{d}.y4m") for d in ("cpu", "cuda")}
+    before = (warp_kernel.WARP_LUMA_RS.launches, warp_kernel.WARP_LUMA.launches)
+    trender.render(src, dest["cuda"], trender.RenderOptions(**opts), device="cuda")
+    assert warp_kernel.WARP_LUMA_RS.launches == before[0] + 2
+    assert warp_kernel.WARP_LUMA.launches == before[1]
+    traj = Trajectory.load(dest["cuda"] + ".traj.npz")
+    trender.encode(src, dest["cpu"], traj, trender.RenderOptions(**opts), device="cpu")
+    frames = [list(open_reader(dest[d])) for d in ("cpu", "cuda")]
+    assert len(frames[0]) == len(frames[1]) == 8
+    for a, b in zip(*frames):
+        for pa, pb in zip(a, b):
+            assert_u8_close(torch.from_numpy(np.array(pa)), torch.from_numpy(np.array(pb)))
+
+
 def shifted_chunk(device, shifts, h=480, w=640):
     """Frames of a smooth analytic texture shifted by sub-pixel offsets."""
     y = torch.arange(h, dtype=torch.float64)[:, None]

@@ -103,7 +103,7 @@ def test_window_corrections_kalman_matches_jax(radius):
     t_len, batch = rots.shape[0], 16
     kw = dict(stabilise="smooth", smoother="kalman", stabilise_radius=radius)
     jfn = jmake_window_corrections(radius, JRenderOptions(**kw), None)
-    tfn = trender.make_window_corrections(radius, trender.RenderOptions(**kw))
+    tfn = trender.make_window_corrections(radius, trender.RenderOptions(**kw), None)
     for t0 in range(0, t_len, batch):
         idx = [min(max(k, 0), t_len - 1) for k in range(t0 - radius, t0 + batch + radius)]
         want = np.asarray(jfn(jnp.asarray(rots[idx])))
@@ -124,7 +124,7 @@ def test_fixed_lag_stays_near_global_rts():
                                  stabilise_radius=radius)
     glob = trender.compute_corrections(Trajectory(params=w), opts, device="cpu")
     rots = so3.exp(torch.from_numpy(w.astype(np.float32)))
-    fn = trender.make_window_corrections(radius, opts)
+    fn = trender.make_window_corrections(radius, opts, None)
     outs = np.zeros_like(glob)
     for t0 in range(0, t_len, batch):
         idx = [min(max(k, 0), t_len - 1) for k in range(t0 - radius, t0 + batch + radius)]

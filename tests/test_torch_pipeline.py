@@ -140,8 +140,8 @@ def test_encode_only_without_trajectory_errors(tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("debug", True), ("crop_rect", "64:48"), ("device_sink", True),
-    ("interp", "bicubic"), ("projection", "equirect"), ("rolling_shutter", 0.75),
-    ("horizon_lock", True), ("gyro", True), ("prefilter", "auto"),
+    ("interp", "bicubic"), ("projection", "equirect"), ("interp", "lanczos"),
+    ("preview", "p.png"), ("display", True), ("prefilter", "auto"),
 ])
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

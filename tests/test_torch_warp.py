@@ -253,7 +253,9 @@ def test_float_warp_samples_the_float_source_unrounded():
     (torch.zeros((0, 8, 8)), torch.eye(3)),
     (torch.zeros((2, 8, 8), dtype=torch.uint8), torch.eye(3)),
     (torch.zeros((8, 8)), torch.eye(3)),
-    (torch.zeros((2, 8, 8)), torch.eye(3)[None]),  # one matrix, not a stack
+    # A batch's (T, ny, 3, 3) stack: the float warp takes one frame's
+    # matrix or its (ny, 3, 3) per-tile-row stack.
+    (torch.zeros((2, 8, 8)), torch.eye(3)[None, None]),
 ])
 def test_float_warp_rejects_bad_operands(src, rot):
     jin, jout = cameras(64, 48, False)
@@ -262,9 +264,22 @@ def test_float_warp_rejects_bad_operands(src, rot):
 
 
 def test_warp_yuv_rejects_a_matrix_stack():
+    """A batch's (T, ny, 3, 3) stack; one frame's (ny, 3, 3) per-tile-row
+    stack is the rolling-shutter form and is taken."""
     jin, jout = cameras(64, 48, False)
     y = torch.zeros((48, 64), dtype=torch.uint8)
     c = torch.zeros((24, 32), dtype=torch.uint8)
     with pytest.raises(ValueError, match="one"):
-        warp_kernel.warp_yuv(y, c, c, torch.eye(3)[None], to_port(jout), to_port(jin),
+        warp_kernel.warp_yuv(y, c, c, torch.eye(3)[None, None], to_port(jout), to_port(jin),
                              to_port(jout), to_port(jin), (8, 8))
+
+
+def test_time_warp_builds_needs_a_card(capsys):
+    """The build-comparison script imports without a card or ``nvcc`` and
+    refuses to run without one."""
+    from video_annotator_tpu_torch.tools import time_warp_builds
+
+    if torch.cuda.is_available():
+        pytest.skip("the refusal is for a host without a card")
+    assert time_warp_builds.main([]) == 1
+    assert "CUDA" in capsys.readouterr().err

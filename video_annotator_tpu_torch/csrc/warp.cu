@@ -12,6 +12,15 @@
 //       output, not rounded                             -> vat_warp_f32, P = 1
 //   _build_warp_planes_fn :1957     -- P planes of one frame sharing one
 //       map (batched="planes", border=128 for chroma)   -> vat_warp_f32, P > 1
+// and the rolling-shutter mode of each of them (_make_kernel(rs=True),
+// :925-927, :1142-1149): one 3x3 per 8-row output tile row instead of one
+// per frame -> the same entries with ny > 0. Output row y of frame t then
+// takes rot[t][min(y / 8, ny - 1)], the oracle's rule
+// (video_annotator_tpu/ops/warp_xla.py:55-56); all after the rotation is
+// unchanged. The 32x8 block covers exactly one tile row, so the row index
+// is the block's own (blockIdx.y) and no thread does rotation arithmetic
+// of its own. The mode is a template argument: the whole-frame kernels are
+// instruction for instruction what they were without it.
 //
 // Per output pixel of a rectilinear output camera: ray = ((x-ocx)/ofx,
 // (y-ocy)/ofy, 1) (as a product with 1/ofx, taken once on the host, which
@@ -52,6 +61,20 @@ struct WarpParams {
   int in_w, in_h, out_w, out_h;
   int fisheye;
 };
+
+constexpr int TILE_ROWS = 8;  // output rows per 3x3 with ny > 0, = blockDim.y
+
+// The 3x3 of this block's rows of frame t: rot is (T, 3, 3) without RS and
+// (T, ny, 3, 3) with it, a block being one tile row and its index clipped
+// to the stack. A run-time test of ny here instead of the template
+// argument cost the whole-frame launches 2 to 7% on an H100, and a 64-bit
+// t * 9 another 2% on the 4K luma batch (tools/time_warp_builds.py).
+template <bool RS>
+__device__ __forceinline__ const float* row_rotation(int ny, const float* __restrict__ rot,
+                                                     int t) {
+  if (!RS) return rot + t * 9;
+  return rot + ((size_t)t * ny + min((int)blockIdx.y, ny - 1)) * 9;
+}
 
 // Products and sums that the compiler may not contract into fused
 // multiply-adds. The plain version computes the map and the taps as
@@ -133,18 +156,31 @@ __device__ __forceinline__ uint8_t to_u8(float v) {
 }
 
 // (T, NPLANES, in_h, in_w) uint8 -> (T, NPLANES, out_h, out_w) uint8, one
-// 3x3 per frame.
-template <int NPLANES>
+// 3x3 per frame or per tile row of a frame.
+template <int NPLANES, bool RS>
 __global__ void warp_kernel(const uint8_t* __restrict__ src,
                             uint8_t* __restrict__ dst,
-                            const float* __restrict__ rot, WarpParams p) {
+                            const float* __restrict__ rot, WarpParams p, int ny) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int t = blockIdx.z;
+  // With RS nine of the block's threads fetch its 3x3 once, before any
+  // thread leaves. On an H100 at the 4K shapes this takes 3 to 4% off the
+  // launch against every thread reading the nine floats through the
+  // read-only cache; the float kernel, bound by bytes, lost 2% to the
+  // barrier and reads them direct (tools/time_warp_builds.py).
+  __shared__ float staged[9];
+  const float* r = row_rotation<RS>(ny, rot, t);
+  if (RS) {
+    const int i = threadIdx.y * blockDim.x + threadIdx.x;
+    if (i < 9) staged[i] = __ldg(r + i);
+    __syncthreads();
+    r = staged;
+  }
   if (x >= p.out_w || y >= p.out_h) return;
 
   float sx, sy;
-  const bool valid = source_coords(p, rot + t * 9, x, y, &sx, &sy);
+  const bool valid = source_coords(p, r, x, y, &sx, &sy);
   const size_t in_plane = (size_t)p.in_h * p.in_w;
   const size_t out_plane = (size_t)p.out_h * p.out_w;
   uint8_t* out = dst + (size_t)t * NPLANES * out_plane + (size_t)y * p.out_w + x;
@@ -163,17 +199,18 @@ __global__ void warp_kernel(const uint8_t* __restrict__ src,
 }
 
 // (NPLANES, in_h, in_w) float32 planes of one frame -> (NPLANES, out_h,
-// out_w) float32 under ONE 3x3; neither rounded nor clamped.
-template <int NPLANES>
+// out_w) float32 under ONE 3x3 or one per tile row; neither rounded nor
+// clamped.
+template <int NPLANES, bool RS>
 __global__ void warp_f32_kernel(const float* __restrict__ src,
                                 float* __restrict__ dst,
-                                const float* __restrict__ rot, WarpParams p) {
+                                const float* __restrict__ rot, WarpParams p, int ny) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= p.out_w || y >= p.out_h) return;
 
   float sx, sy;
-  const bool valid = source_coords(p, rot, x, y, &sx, &sy);
+  const bool valid = source_coords(p, row_rotation<RS>(ny, rot, 0), x, y, &sx, &sy);
   const size_t in_plane = (size_t)p.in_h * p.in_w;
   const size_t out_plane = (size_t)p.out_h * p.out_w;
   float* out = dst + (size_t)y * p.out_w + x;
@@ -189,52 +226,69 @@ __global__ void warp_f32_kernel(const float* __restrict__ src,
   }
 }
 
+// The launches by plane count, for one rotation mode.
+template <bool RS>
+bool launch_u8(int nplanes, dim3 grid, dim3 block, cudaStream_t s, const uint8_t* in,
+               uint8_t* out, const float* r, const WarpParams& p, int ny) {
+  switch (nplanes) {
+    case 1: warp_kernel<1, RS><<<grid, block, 0, s>>>(in, out, r, p, ny); return true;
+    case 2: warp_kernel<2, RS><<<grid, block, 0, s>>>(in, out, r, p, ny); return true;
+    default: return false;
+  }
+}
+
+template <bool RS>
+bool launch_f32(int nplanes, dim3 grid, dim3 block, cudaStream_t s, const float* in,
+                float* out, const float* r, const WarpParams& p, int ny) {
+  switch (nplanes) {
+    case 1: warp_f32_kernel<1, RS><<<grid, block, 0, s>>>(in, out, r, p, ny); return true;
+    case 2: warp_f32_kernel<2, RS><<<grid, block, 0, s>>>(in, out, r, p, ny); return true;
+    case 3: warp_f32_kernel<3, RS><<<grid, block, 0, s>>>(in, out, r, p, ny); return true;
+    case 4: warp_f32_kernel<4, RS><<<grid, block, 0, s>>>(in, out, r, p, ny); return true;
+    default: return false;
+  }
+}
+
 }  // namespace
 
 extern "C" int vat_warp_u8(const void* src, void* dst, const void* rot, int t,
                            int nplanes, int in_h, int in_w, int out_h, int out_w,
-                           float ofx, float ofy, float ocx, float ocy, float ifx,
+                           int ny, float ofx, float ofy, float ocx, float ocy, float ifx,
                            float ify, float icx, float icy, float k1, float k2,
                            float k3, float k4, int fisheye, float border,
                            void* stream) {
   WarpParams p{1.0f / ofx, 1.0f / ofy, ocx, ocy, ifx, ify, icx, icy, k1, k2, k3, k4,
                border, in_w, in_h, out_w, out_h, fisheye};
-  const dim3 block(32, 8);
-  const dim3 grid((out_w + 31) / 32, (out_h + 7) / 8, t);
+  if (ny < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(32, TILE_ROWS);
+  const dim3 grid((out_w + 31) / 32, (out_h + TILE_ROWS - 1) / TILE_ROWS, t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* in = static_cast<const uint8_t*>(src);
   uint8_t* out = static_cast<uint8_t*>(dst);
   const float* r = static_cast<const float*>(rot);
-  if (nplanes == 1) {
-    warp_kernel<1><<<grid, block, 0, s>>>(in, out, r, p);
-  } else if (nplanes == 2) {
-    warp_kernel<2><<<grid, block, 0, s>>>(in, out, r, p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool launched = ny > 0 ? launch_u8<true>(nplanes, grid, block, s, in, out, r, p, ny)
+                               : launch_u8<false>(nplanes, grid, block, s, in, out, r, p, ny);
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int vat_warp_f32(const void* src, void* dst, const void* rot,
                             int nplanes, int in_h, int in_w, int out_h, int out_w,
-                            float ofx, float ofy, float ocx, float ocy, float ifx,
+                            int ny, float ofx, float ofy, float ocx, float ocy, float ifx,
                             float ify, float icx, float icy, float k1, float k2,
                             float k3, float k4, int fisheye, float border,
                             void* stream) {
   WarpParams p{1.0f / ofx, 1.0f / ofy, ocx, ocy, ifx, ify, icx, icy, k1, k2, k3, k4,
                border, in_w, in_h, out_w, out_h, fisheye};
-  const dim3 block(32, 8);
-  const dim3 grid((out_w + 31) / 32, (out_h + 7) / 8, 1);
+  if (ny < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(32, TILE_ROWS);
+  const dim3 grid((out_w + 31) / 32, (out_h + TILE_ROWS - 1) / TILE_ROWS, 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* in = static_cast<const float*>(src);
   float* out = static_cast<float*>(dst);
   const float* r = static_cast<const float*>(rot);
-  switch (nplanes) {
-    case 1: warp_f32_kernel<1><<<grid, block, 0, s>>>(in, out, r, p); break;
-    case 2: warp_f32_kernel<2><<<grid, block, 0, s>>>(in, out, r, p); break;
-    case 3: warp_f32_kernel<3><<<grid, block, 0, s>>>(in, out, r, p); break;
-    case 4: warp_f32_kernel<4><<<grid, block, 0, s>>>(in, out, r, p); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool launched = ny > 0 ? launch_f32<true>(nplanes, grid, block, s, in, out, r, p, ny)
+                               : launch_f32<false>(nplanes, grid, block, s, in, out, r, p, ny);
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,7 +21,10 @@ import torch
 
 from video_annotator_tpu_torch import so3
 from video_annotator_tpu_torch.camera import Camera, CameraPreset, get_preset_camera
+from video_annotator_tpu_torch.io.gpmf import DEFAULT_AXIS_MAP, build_gpmf_payload
+from video_annotator_tpu_torch.io.mp4 import write_gpmf_mp4
 from video_annotator_tpu_torch.io.video import VideoMeta
+from video_annotator_tpu_torch.smoothing.horizon import GRAVITY
 
 
 def _lon_lat(d: torch.Tensor):
@@ -109,6 +112,65 @@ class SyntheticCamera:
 
     def rotations(self) -> np.ndarray:
         return so3.exp(torch.from_numpy(self.rotation_vectors())).numpy()
+
+
+GYRO_HZ = 400
+ACCL_HZ = 200
+
+
+def _attitude_at(rotvecs: np.ndarray, frame_pos: np.ndarray) -> torch.Tensor:
+    """Camera attitude relative to frame 0 at fractional frame positions:
+    a Catmull-Rom curve through the ground-truth rotation vectors (held
+    beyond the last frame), so it is smooth and passes through the truth
+    at whole frames. Float64 (S, 3, 3)."""
+    n = len(rotvecs)
+    i = np.clip(np.floor(frame_pos).astype(np.int64), 0, n - 1)
+    u = (frame_pos - i)[:, None]
+    p0, p1, p2, p3 = (rotvecs[np.clip(i + k, 0, n - 1)].astype(np.float64)
+                      for k in (-1, 0, 1, 2))
+    v = 0.5 * (2 * p1 + (p2 - p0) * u + (2 * p0 - 5 * p1 + 4 * p2 - p3) * u ** 2
+               + (3 * p1 - p0 - 3 * p2 + p3) * u ** 3)
+    r = so3.exp(torch.from_numpy(v))
+    return so3.matmul(so3.transpose(r[:1]), r)
+
+
+def telemetry_payloads(config: SyntheticCamera, up0=(0.0, -1.0, 0.0)) -> list:
+    """GPMF payloads, one per second of ``config``'s clip, that a GoPro
+    riding the synthetic camera would have logged: GYRO at 400 Hz (the
+    body rates that carry each sample's attitude to the next) and ACCL at
+    200 Hz (gravity's reaction along world-up ``up0``, given in frame-0
+    camera coordinates, rolled with the camera). Integrating the gyro
+    stream reproduces the ground-truth trajectory at the frame times."""
+    fps = float(config.fps)
+    seconds = config.num_frames / fps
+    rotvecs = config.rotation_vectors()
+
+    def sensor_order(cam: np.ndarray) -> np.ndarray:
+        """Camera-frame vectors in the sensor's axis order (the inverse of
+        ``gyro_to_camera``)."""
+        raw = np.empty_like(cam)
+        for i, (src, sign) in enumerate(DEFAULT_AXIS_MAP):
+            raw[:, src] = cam[:, i] * sign
+        return raw
+
+    n_gyro = int(np.floor(seconds * GYRO_HZ + 1e-9))
+    att = _attitude_at(rotvecs, np.arange(n_gyro + 1) / GYRO_HZ * fps)
+    omega = so3.log(so3.matmul(so3.transpose(att[:-1]), att[1:])).numpy() * GYRO_HZ
+    n_accl = int(np.floor(seconds * ACCL_HZ + 1e-9))
+    att_a = _attitude_at(rotvecs, np.arange(n_accl) / ACCL_HZ * fps)
+    up = torch.as_tensor(np.asarray(up0, np.float64))
+    accl = (so3.transpose(att_a) * up).sum(dim=-1).numpy() * GRAVITY
+    gyro_raw, accl_raw = sensor_order(omega), sensor_order(accl)
+    return [build_gpmf_payload(gyro_raw[s * GYRO_HZ:(s + 1) * GYRO_HZ],
+                               accl=accl_raw[s * ACCL_HZ:(s + 1) * ACCL_HZ])
+            for s in range(-(-n_gyro // GYRO_HZ))]
+
+
+def write_telemetry_mp4(path: str, config: SyntheticCamera,
+                        up0=(0.0, -1.0, 0.0)) -> None:
+    """A telemetry-only MP4 (no video track) of ``config``'s clip: one GPMF
+    sample per second from :func:`telemetry_payloads`."""
+    write_gpmf_mp4(path, telemetry_payloads(config, up0), timescale=1000, delta=1000)
 
 
 class SyntheticSource:

@@ -16,6 +16,16 @@ Port of the TPU warp's entry points in
 - :func:`warp_planes_f32`: up to four float planes of one frame sharing
   one map, ``warp_planes_pallas`` (``_build_warp_planes_fn``, :1957).
 
+Every entry also takes the rolling-shutter form of its rotation, one 3x3
+per 8-row output tile row (``_make_kernel(rs=True)``, :925-927,
+:1142-1149): a (ny, 3, 3) stack where it took one (3, 3) matrix, a
+(T, ny, 3, 3) stack where it took (T, 3, 3), as the JAX entries do
+(``jnp.ndim(rotation) == 3`` at :2003, :2135, :2376; ``== 4`` at :2261).
+Output row ``r`` takes rotation ``min(r // 8, ny - 1)``. The chroma stack
+is gathered from the luma one before the launch
+(:func:`chroma_row_rotations`). These launches are counted under kernel
+objects of their own (``*_rs``).
+
 The float entries sample the float source as it is, like the XLA oracle;
 the TPU kernel rounded it to bytes while packing (``_pack_input``,
 :1737). On integer-valued planes, which is what the callers pass, the
@@ -43,13 +53,14 @@ from video_annotator_tpu_torch.ops import cuda_lib
 from video_annotator_tpu_torch.ops.warp_plain import (
     bilinear_sample,
     compute_warp_map,
+    num_tile_rows,
 )
 
 _SOURCE = "video_annotator_tpu_torch/csrc/warp.cu"
 _PALLAS = "video_annotator_tpu/ops/warp_pallas.py"
 _CAMERA_ARGTYPES = [ctypes.c_float] * 12 + [ctypes.c_int, ctypes.c_float]
-_U8_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + _CAMERA_ARGTYPES
-_F32_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + _CAMERA_ARGTYPES
+_U8_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + _CAMERA_ARGTYPES
+_F32_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + _CAMERA_ARGTYPES
 
 
 def _kernel(name: str, symbol: str, argtypes, line: int) -> cuda_lib.CudaKernel:
@@ -65,8 +76,20 @@ WARP_PLANES_F32 = _kernel("warp_planes_f32", "vat_warp_f32", _F32_ARGTYPES, 1957
 # _build_warp_yuv_fn: the one-frame luma and chroma launches
 WARP_YUV_LUMA = _kernel("warp_yuv_luma", "vat_warp_u8", _U8_ARGTYPES, 2041)
 WARP_YUV_CHROMA = _kernel("warp_yuv_chroma", "vat_warp_u8", _U8_ARGTYPES, 2066)
-BATCH_KERNELS = (WARP_LUMA, WARP_CHROMA)
-ONE_FRAME_KERNELS = (WARP_YUV_LUMA, WARP_YUV_CHROMA)
+# The same build functions with rs=True: the lines that make their kernels.
+WARP_LUMA_RS = _kernel("warp_luma_rs", "vat_warp_u8", _U8_ARGTYPES, 2163)
+WARP_CHROMA_RS = _kernel("warp_chroma_rs", "vat_warp_u8", _U8_ARGTYPES, 2187)
+WARP_FRAME_F32_RS = _kernel("warp_frame_f32_rs", "vat_warp_f32", _F32_ARGTYPES, 1784)
+WARP_PLANES_F32_RS = _kernel("warp_planes_f32_rs", "vat_warp_f32", _F32_ARGTYPES, 1939)
+WARP_YUV_LUMA_RS = _kernel("warp_yuv_luma_rs", "vat_warp_u8", _U8_ARGTYPES, 2036)
+WARP_YUV_CHROMA_RS = _kernel("warp_yuv_chroma_rs", "vat_warp_u8", _U8_ARGTYPES, 2061)
+# (luma, chroma) kernel objects, by whether the rotations are per tile row.
+BATCH_KERNELS = {False: (WARP_LUMA, WARP_CHROMA),
+                 True: (WARP_LUMA_RS, WARP_CHROMA_RS)}
+ONE_FRAME_KERNELS = {False: (WARP_YUV_LUMA, WARP_YUV_CHROMA),
+                     True: (WARP_YUV_LUMA_RS, WARP_YUV_CHROMA_RS)}
+FRAME_F32_KERNELS = {False: WARP_FRAME_F32, True: WARP_FRAME_F32_RS}
+PLANES_F32_KERNELS = {False: WARP_PLANES_F32, True: WARP_PLANES_F32_RS}
 
 MAX_F32_PLANES = 4
 
@@ -74,6 +97,15 @@ MAX_F32_PLANES = 4
 def to_u8(x: torch.Tensor) -> torch.Tensor:
     """Round half to even and clamp to uint8, as K1's uint8 mode does."""
     return torch.clamp(torch.round(x), 0.0, 255.0).to(torch.uint8)
+
+
+def chroma_row_rotations(rot_y: torch.Tensor, nyc: int) -> torch.Tensor:
+    """Chroma tile-row rotations from a (..., ny, 3, 3) luma stack: chroma
+    tile row j covers luma tile rows 2j and 2j + 1 and takes row 2j's
+    rotation, clipped to the stack (``_chroma_row_rotations``, :2008)."""
+    idx = torch.clamp(2 * torch.arange(nyc, device=rot_y.device),
+                      max=rot_y.shape[-3] - 1)
+    return rot_y[..., idx, :, :]
 
 
 def _check_cameras(out_camera: Camera, in_camera: Camera) -> None:
@@ -95,8 +127,9 @@ def warp_planes_f32_plain(src: torch.Tensor, rotation: torch.Tensor,
                           out_size: Tuple[int, int],
                           border: float = 0.0) -> torch.Tensor:
     """Plain torch version of K1's float mode: (P, H, W) float planes of
-    one frame, one (3, 3) matrix -> (P, out_h, out_w) float32, neither
-    rounded nor clamped, sampled centred on ``border``."""
+    one frame, one (3, 3) matrix or a (ny, 3, 3) stack -> (P, out_h,
+    out_w) float32, neither rounded nor clamped, sampled centred on
+    ``border``."""
     coords = compute_warp_map(out_camera, in_camera, rotation, out_size)
     return torch.stack([
         bilinear_sample(plane.to(torch.float32) - border, coords) + border
@@ -109,8 +142,9 @@ def warp_planes_u8_plain(src: torch.Tensor, rotations: torch.Tensor,
                          out_size: Tuple[int, int],
                          border: float = 0.0) -> torch.Tensor:
     """Plain torch version of K1's uint8 mode: (T, P, H, W) uint8 planes,
-    (T, 3, 3) matrices -> (T, P, out_h, out_w) uint8, one map per frame
-    shared by its P planes, rounded half to even."""
+    (T, 3, 3) matrices or a (T, ny, 3, 3) stack -> (T, P, out_h, out_w)
+    uint8, one map per frame shared by its P planes, rounded half to
+    even."""
     return torch.stack([
         to_u8(warp_planes_f32_plain(src[t], rotations[t], out_camera,
                                     in_camera, out_size, border))
@@ -118,20 +152,32 @@ def warp_planes_u8_plain(src: torch.Tensor, rotations: torch.Tensor,
     ])
 
 
+def _tile_rows(rotations: torch.Tensor, lead: tuple) -> int:
+    """The kernel's ``ny`` for rotations of shape ``lead + (3, 3)`` (0: one
+    3x3 per frame) or ``lead + (ny, 3, 3)`` (per tile row)."""
+    shape = tuple(rotations.shape)
+    if shape == lead + (3, 3):
+        return 0
+    if (len(shape) == len(lead) + 3 and shape[:len(lead)] == lead
+            and shape[-2:] == (3, 3) and shape[-3] > 0):
+        return shape[-3]
+    raise ValueError(f"rotations must be {lead + (3, 3)} or "
+                     f"{lead + ('ny', 3, 3)}, got {shape}")
+
+
 def warp_planes_u8(src: torch.Tensor, rotations: torch.Tensor,
                    out_camera: Camera, in_camera: Camera,
                    out_size: Tuple[int, int], border: float = 0.0,
                    kernels=BATCH_KERNELS) -> torch.Tensor:
     """Warp (T, P, H, W) uint8 planes (P = 1 luma, P = 2 chroma) by
-    per-frame (T, 3, 3) matrices applied to output rays. ``kernels`` is
-    the (luma, chroma) pair of kernel objects whose launch is counted:
-    the batch's, or the one-frame warp's (:data:`ONE_FRAME_KERNELS`)."""
+    per-frame (T, 3, 3) matrices, or per-tile-row (T, ny, 3, 3) stacks,
+    applied to output rays. ``kernels`` names the kernel objects whose
+    launch is counted: the batch's, or the one-frame warp's
+    (:data:`ONE_FRAME_KERNELS`)."""
     if src.dim() != 4 or src.dtype != torch.uint8 or src.shape[1] not in (1, 2):
         raise ValueError(f"warp takes (T, 1|2, H, W) uint8, got "
                          f"{tuple(src.shape)} {src.dtype}")
-    if rotations.shape != (src.shape[0], 3, 3):
-        raise ValueError(f"rotations must be ({src.shape[0]}, 3, 3), got "
-                         f"{tuple(rotations.shape)}")
+    ny = _tile_rows(rotations, lead=(src.shape[0],))
     _check_cameras(out_camera, in_camera)
     rotations = rotations.to(device=src.device, dtype=torch.float32)
     if src.device.type == "cpu":
@@ -145,11 +191,21 @@ def warp_planes_u8(src: torch.Tensor, rotations: torch.Tensor,
     out = torch.empty((t, planes, out_h, out_w), dtype=torch.uint8,
                       device=src.device)
     cuda_lib.check_operands(src, rotations, out)
-    kernels[planes - 1].launch(
+    kernels[ny > 0][planes - 1].launch(
         cuda_lib.ptr(src), cuda_lib.ptr(out), cuda_lib.ptr(rotations),
-        t, planes, in_h, in_w, out_h, out_w,
+        t, planes, in_h, in_w, out_h, out_w, ny,
         *_camera_args(out_camera, in_camera, border))
     return out
+
+
+def chroma_rotations(rotations: torch.Tensor, lead: tuple, out_h_c: int):
+    """The rotations of a chroma warp to ``out_h_c`` rows from the luma
+    ones of shape ``lead + (3, 3)`` or ``lead + (ny, 3, 3)`` (``lead`` is
+    ``()`` for one frame, ``(T,)`` for a batch): as they are, or gathered
+    per chroma tile row where they are a per-tile-row stack."""
+    if _tile_rows(rotations, lead) == 0:
+        return rotations
+    return chroma_row_rotations(rotations, num_tile_rows(out_h_c))
 
 
 def warp_yuv_batch(ys: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
@@ -160,11 +216,13 @@ def warp_yuv_batch(ys: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
 
     Returns ``(wy, wu, wv)``: (T, out_h, out_w) and two
     (T, out_h/2, out_w/2) uint8 stacks. Luma warps with border 0, chroma
-    with the neutral 128, both planes of a frame sharing one map."""
+    with the neutral 128, both planes of a frame sharing one map.
+    ``rotations`` is (T, 3, 3), or (T, ny, 3, 3) per luma tile row."""
     oh, ow = out_size
     wy = warp_planes_u8(ys[:, None], rotations, out_camera, in_camera,
                         (oh, ow), border=0.0)[:, 0]
-    wc = warp_planes_u8(torch.stack([us, vs], dim=1), rotations, out_camera_c,
+    wc = warp_planes_u8(torch.stack([us, vs], dim=1),
+                        chroma_rotations(rotations, (ys.shape[0],), oh // 2), out_camera_c,
                         in_camera_c, (oh // 2, ow // 2), border=128.0)
     return wy, wc[:, 0], wc[:, 1]
 
@@ -174,30 +232,30 @@ def warp_yuv(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
              out_camera_c: Camera, in_camera_c: Camera,
              out_size: Tuple[int, int]):
     """Warp ONE frame's (H, W) luma and (H/2, W/2) chroma uint8 planes by
-    one (3, 3) matrix: a luma launch and a two-plane chroma launch of
-    K1's uint8 mode with T = 1. Returns uint8 ``(wy, wu, wv)``."""
-    if rotation.shape != (3, 3):
-        raise ValueError(f"warp_yuv takes one (3, 3) matrix, got "
-                         f"{tuple(rotation.shape)}")
+    one (3, 3) matrix or a (ny, 3, 3) stack per luma tile row: a luma
+    launch and a two-plane chroma launch of K1's uint8 mode with T = 1.
+    Returns uint8 ``(wy, wu, wv)``."""
+    if rotation.dim() not in (2, 3):
+        raise ValueError(f"warp_yuv takes one (3, 3) matrix or a (ny, 3, 3) "
+                         f"stack, got {tuple(rotation.shape)}")
     oh, ow = out_size
-    rots = rotation[None]
-    wy = warp_planes_u8(y[None, None], rots, out_camera, in_camera, (oh, ow),
-                        border=0.0, kernels=ONE_FRAME_KERNELS)
-    wc = warp_planes_u8(torch.stack([u, v])[None], rots, out_camera_c, in_camera_c,
-                        (oh // 2, ow // 2), border=128.0, kernels=ONE_FRAME_KERNELS)
+    wy = warp_planes_u8(y[None, None], rotation[None], out_camera, in_camera,
+                        (oh, ow), border=0.0, kernels=ONE_FRAME_KERNELS)
+    wc = warp_planes_u8(torch.stack([u, v])[None],
+                        chroma_rotations(rotation, (), oh // 2)[None],
+                        out_camera_c, in_camera_c, (oh // 2, ow // 2),
+                        border=128.0, kernels=ONE_FRAME_KERNELS)
     return wy[0, 0], wc[0, 0], wc[0, 1]
 
 
 def _warp_f32(src: torch.Tensor, rotation: torch.Tensor, out_camera: Camera,
               in_camera: Camera, out_size: Tuple[int, int], border: float,
-              kernel: cuda_lib.CudaKernel) -> torch.Tensor:
+              kernels) -> torch.Tensor:
     if (src.dim() != 3 or src.dtype != torch.float32
             or not 1 <= src.shape[0] <= MAX_F32_PLANES):
         raise ValueError(f"the float warp takes (1..{MAX_F32_PLANES}, H, W) "
                          f"float32, got {tuple(src.shape)} {src.dtype}")
-    if rotation.shape != (3, 3):
-        raise ValueError(f"the float warp takes one (3, 3) matrix, got "
-                         f"{tuple(rotation.shape)}")
+    ny = _tile_rows(rotation, lead=())
     _check_cameras(out_camera, in_camera)
     rotation = rotation.to(device=src.device, dtype=torch.float32)
     if src.device.type == "cpu":
@@ -211,9 +269,9 @@ def _warp_f32(src: torch.Tensor, rotation: torch.Tensor, out_camera: Camera,
     out = torch.empty((planes, out_h, out_w), dtype=torch.float32,
                       device=src.device)
     cuda_lib.check_operands(src, rotation, out)
-    kernel.launch(
+    kernels[ny > 0].launch(
         cuda_lib.ptr(src), cuda_lib.ptr(out), cuda_lib.ptr(rotation),
-        planes, in_h, in_w, out_h, out_w,
+        planes, in_h, in_w, out_h, out_w, ny,
         *_camera_args(out_camera, in_camera, border))
     return out
 
@@ -221,19 +279,22 @@ def _warp_f32(src: torch.Tensor, rotation: torch.Tensor, out_camera: Camera,
 def warp_frame_f32(image: torch.Tensor, rotation: torch.Tensor,
                    out_camera: Camera, in_camera: Camera,
                    out_size: Tuple[int, int], border: float = 0.0) -> torch.Tensor:
-    """Warp one (H, W) float32 plane by one (3, 3) matrix to a float32
-    (out_h, out_w) plane, neither rounded nor clamped."""
+    """Warp one (H, W) float32 plane by one (3, 3) matrix, or a
+    (ny, 3, 3) stack per tile row, to a float32 (out_h, out_w) plane,
+    neither rounded nor clamped."""
     if image.dim() != 2:
         raise ValueError(f"warp_frame_f32 takes one (H, W) plane, got "
                          f"{tuple(image.shape)}")
     return _warp_f32(image[None], rotation, out_camera, in_camera, out_size,
-                     border, WARP_FRAME_F32)[0]
+                     border, FRAME_F32_KERNELS)[0]
 
 
 def warp_planes_f32(planes: torch.Tensor, rotation: torch.Tensor,
                     out_camera: Camera, in_camera: Camera,
                     out_size: Tuple[int, int], border: float = 0.0) -> torch.Tensor:
     """Warp (P, H, W) float32 planes of one frame (P up to 4; U and V with
-    border 128) through ONE map in one launch; (P, out_h, out_w) float32."""
-    return _warp_f32(planes, rotation, out_camera, in_camera, out_size,
-                     border, WARP_PLANES_F32)
+    border 128) through ONE map in one launch; (P, out_h, out_w) float32.
+    ``rotation`` is one (3, 3) matrix or a (ny, 3, 3) stack per tile row
+    of THESE planes (chroma callers gather it, :func:`chroma_row_rotations`)."""
+    return _warp_f32(planes, rotation, out_camera, in_camera, out_size, border,
+                     PLANES_F32_KERNELS)

@@ -21,12 +21,21 @@ import torch
 
 from video_annotator_tpu_torch.camera import Camera
 
+TILE_ROWS = 8  # output rows per rotation of a per-tile-row stack
+
+
+def num_tile_rows(out_h: int) -> int:
+    """Tile rows of an ``out_h``-row output: the length of a full stack."""
+    return -(-out_h // TILE_ROWS)
+
 
 def compute_warp_map(out_camera: Camera, in_camera: Camera,
                      rotation: torch.Tensor,
                      out_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """(H_out, W_out, 2) source coordinates (x, y) for a (3, 3) rotation
-    applied to output rays."""
+    applied to output rays. A (ny, 3, 3) stack is the rolling-shutter
+    form: output row ``r`` takes rotation ``min(r // 8, ny - 1)`` (one
+    camera pose per 8-row tile row)."""
     if out_size is None:
         out_size = (out_camera.height, out_camera.width)
     h, w = out_size
@@ -35,6 +44,9 @@ def compute_warp_map(out_camera: Camera, in_camera: Camera,
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
     rays = out_camera.unproject(torch.stack([xs, ys], dim=-1))
     r = rotation.to(torch.float32)
+    if r.dim() == 3:
+        rows = torch.clamp(torch.arange(h, device=dev) // TILE_ROWS, max=r.shape[0] - 1)
+        r = r[rows].permute(1, 2, 0)[..., None]  # (3, 3, h, 1): per-row entries
     rx, ry, rz = rays[..., 0], rays[..., 1], rays[..., 2]
     rotated = torch.stack(
         [r[i, 0] * rx + r[i, 1] * ry + r[i, 2] * rz for i in range(3)], dim=-1)

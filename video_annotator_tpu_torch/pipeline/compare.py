@@ -6,6 +6,11 @@ each mode derives its corrections from its family's trajectory, and the
 tiles are assembled on the device, so a frame's canvas crosses to the
 host once, on the writer thread.
 
+A rotation cell may level its horizon: ``smooth+lock`` (any rotation
+mode with the ``+lock`` suffix) or ``horizon`` (the lock alone, no
+stabilisation). The family's analyse then also estimates world-up from
+the source's telemetry, where it has any.
+
 On a card a rotation cell warps its float planes through kernel K1's
 float mode (``FrameWarper.__call__``: one luma launch, one two-plane
 chroma launch) and a similarity cell its uint8 planes through K1's
@@ -65,38 +70,31 @@ def comparison_grid_size(n: int, cell_aspect: float = 4 / 3) -> tuple:
 
 
 def _parse_mode(m: str):
-    """-> (family, stabilise).
+    """-> (family, stabilise, horizon_lock).
 
-    'none'/'fixed'/'smooth' (rotation family) or a filter family
-    'vidstab'/'deshake'/'dewobble'[:stabilise]. The JAX package's '+lock'
-    suffix and 'horizon' mode (horizon-locked rotation cells) are parsed
-    and then refused: they need ``smoothing/horizon.py``."""
+    'none'/'fixed'/'smooth' (rotation family), optionally suffixed
+    '+lock' (horizon lock); 'horizon' (rotation family, stabilise none,
+    lock on); or a filter family 'vidstab'/'deshake'/'dewobble'[:stabilise]."""
     base, plus, flag = m.partition("+")
     if plus and flag != "lock":
         raise ValueError(f"unknown compare mode suffix {m!r}")
-    lock = bool(plus) or base == "horizon"
-    fam, _, sub = base.partition(":")
+    lock = bool(plus)
     if base == "horizon":
-        family, sub = "rotation", "none"
-    elif fam in ("none", "fixed", "smooth"):
-        family, sub = "rotation", fam
-    elif fam not in FILTER_ALIASES:
+        return "rotation", "none", True
+    fam, _, sub = base.partition(":")
+    if fam in ("none", "fixed", "smooth"):
+        return "rotation", fam, lock
+    if fam not in FILTER_ALIASES:
         raise ValueError(f"unknown compare mode {m!r}")
-    else:
-        family = FILTER_ALIASES[fam]
-        sub = sub or "smooth"
+    family = FILTER_ALIASES[fam]
     if lock and family != "rotation":
         raise ValueError(f"'+lock' needs the rotation family (got {m!r})")
+    sub = sub or "smooth"
     if sub not in ("none", "fixed", "smooth"):
         # Without this, 2D families would silently smooth on a typo
         # ('vidstab:fixd') while rotation cells raise much later.
         raise ValueError(f"unknown stabilise mode {sub!r} in {m!r}")
-    if lock:
-        raise NotImplementedError(
-            f"compare mode {m!r} (a horizon-locked cell) is not ported to the "
-            "torch package yet (ROADMAP.md, modules still to port: "
-            "horizon/gyro/rolling)")
-    return family, sub
+    return family, sub, lock
 
 
 def _label_stamps(labels: Sequence[str], cell_w: int, cell_h: int):
@@ -188,7 +186,7 @@ def render_compare(source: str, dest: Optional[str], modes: Sequence[str],
             "warp with whole-frame poses); render modes separately")
     check_ported(options)
     parsed = [_parse_mode(m) for m in modes]
-    fams = {f for f, _ in parsed}
+    fams = {f for f, _, _ in parsed}
     reader, meta, first, last = open_trimmed(source, options, dev)
 
     def count_frames() -> int:
@@ -203,9 +201,15 @@ def render_compare(source: str, dest: Optional[str], modes: Sequence[str],
         return max(0, min(last, n) - first)
 
     trajs = {}
+    any_lock = any(lock for _, _, lock in parsed)
     if "rotation" in fams:
-        if any(s != "none" for f, s in parsed if f == "rotation"):
-            trajs["rotation"] = analyse(source, options, prof, device=dev)
+        # Locked cells need the measured attitude (and the telemetry's
+        # up vector where present) even at stabilise none.
+        if any(s != "none" or lock for f, s, lock in parsed if f == "rotation"):
+            trajs["rotation"] = analyse(
+                source, dataclasses.replace(
+                    options, horizon_lock=options.horizon_lock or any_lock),
+                prof, device=dev)
         else:
             trajs["rotation"] = Trajectory(
                 np.zeros((count_frames(), KIND_DIMS["so3"])), "so3", meta.fps,
@@ -216,9 +220,10 @@ def render_compare(source: str, dest: Optional[str], modes: Sequence[str],
         trajs["deshake"] = analyse_deshake(source, options, prof, device=dev)
 
     # The shared grid canvas includes the stabilise-buffer zoom when any
-    # rotation cell stabilises; a standalone render gets it from its own
-    # options.stabilise.
-    any_rot_stab = any(f == "rotation" and s != "none" for f, s in parsed)
+    # rotation cell stabilises or levels; a standalone render gets it from
+    # its own options.stabilise.
+    any_rot_stab = any(f == "rotation" and (s != "none" or lock)
+                       for f, s, lock in parsed)
     in_cam, out_cam = build_cameras(
         meta, dataclasses.replace(options, stabilise="smooth")
         if any_rot_stab and options.stabilise == "none" else options)
@@ -228,8 +233,10 @@ def render_compare(source: str, dest: Optional[str], modes: Sequence[str],
         "deshake": deshake_corrections,
     }
     per_mode = []
-    for fam, sub in parsed:
-        corr = corrections[fam](trajs[fam], dataclasses.replace(options, stabilise=sub))
+    for fam, sub, lock in parsed:
+        corr = corrections[fam](trajs[fam], dataclasses.replace(
+            options, stabilise=sub,
+            horizon_lock=(options.horizon_lock or lock) if fam == "rotation" else False))
         if fam == "similarity" and dev.type == "cuda":
             corr = SimilarityWarper.matrices(corr)
         per_mode.append((fam, torch.from_numpy(np.asarray(corr, np.float32)).to(dev)))

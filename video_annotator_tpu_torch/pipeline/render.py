@@ -9,6 +9,10 @@ families (``--filter vidstab``, ``--filter deshake``; ``models/``) share
 the two-phase skeleton: their analysers write a ``similarity`` or
 ``translation`` trajectory and :func:`encode_2d` warps with it.
 
+0. ``--gyro`` (:func:`analyse_gyro`) takes the trajectory from the
+   source's GPMF telemetry instead of tracking: parse the GYRO stream
+   (``io/gpmf.py``, ``io/mp4.py``), integrate it on SO(3) with a prefix
+   product and resample at the frame times (``smoothing/gyro.py``).
 1. Analyse (:func:`analyse`), ``--analysis-mode paired``
    (:class:`PairTracker`): per chunk of G frames (plus the previous
    chunk's last), box-downsample the luma to the tracking scale, detect
@@ -22,20 +26,27 @@ the two-phase skeleton: their analysers write a ``similarity`` or
    and re-detect corners on key frames.
 2. Corrections (:func:`compute_corrections`): SG-smooth the trajectory's
    matrix entries and project back onto SO(3), or Kalman-smooth its
-   rotation vectors; correction = measured . smoothed^T . attitude.
+   rotation vectors; ``--horizon-lock`` rolls the smoothed camera level
+   against gravity (``smoothing/horizon.py``; up from the telemetry's
+   accelerometer, else the first frame taken as level); correction =
+   measured . virtual^T . attitude.
 3. Encode (:func:`encode`): warp Y, U and V of batches of frames through
-   the fused warp (K1) and write them.
+   the fused warp (K1) and write them. ``--rolling-shutter`` turns each
+   frame's correction into one rotation per 8-row output tile row
+   (``smoothing/rolling.py``: scanline poses from the gyro stream, else
+   from the trajectory's frame-rate velocity), which K1 takes in its
+   per-tile-row mode.
 
 Every library entry point takes ``device``. Options outside the ported
-slices (gyro, horizon lock, rolling shutter, other resamplers and
-projections, prefilter, crop, overlays) raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+slices (other resamplers and projections, prefilter, crop, overlays)
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import struct
 from fractions import Fraction
 from typing import Optional
 
@@ -51,6 +62,8 @@ from video_annotator_tpu_torch.camera import (
     get_output_camera,
     get_preset_camera,
 )
+from video_annotator_tpu_torch.io.gpmf import extract_accl, extract_gyro, extract_imu
+from video_annotator_tpu_torch.io.mp4 import parse_tracks
 from video_annotator_tpu_torch.io.prefetch import AsyncFrameWriter, DevicePrefetcher
 from video_annotator_tpu_torch.io.video import VideoMeta, open_reader, open_writer
 from video_annotator_tpu_torch.ops.corners import detect_corners
@@ -72,6 +85,7 @@ from video_annotator_tpu_torch.ops import warp_kernel
 from video_annotator_tpu_torch.ops.warp_plain import (
     box_downsample,
     mip_camera,
+    num_tile_rows,
     scaled_camera,
 )
 from video_annotator_tpu_torch.pipeline.profiler import Progress, StageProfiler
@@ -80,7 +94,18 @@ from video_annotator_tpu_torch.pipeline.trajectory import (
     Trajectory,
     trajectory_path,
 )
+from video_annotator_tpu_torch.smoothing.gyro import integrate_gyro
+from video_annotator_tpu_torch.smoothing.horizon import (
+    DEFAULT_UP,
+    estimate_up_direction,
+    level_horizon,
+)
 from video_annotator_tpu_torch.smoothing.kalman import smooth_rotations_kalman
+from video_annotator_tpu_torch.smoothing.rolling import (
+    rs_row_rotations,
+    rs_row_rotations_gyro,
+    scan_fractions,
+)
 from video_annotator_tpu_torch.smoothing.savgol import savgol_weights, sg_conv
 
 KEY_FRAME_MAX_AGE = 20
@@ -89,6 +114,11 @@ MAX_CORNERS = 200
 MIN_INLIERS_FULL = 40
 RANSAC_SEED = 7  # the JAX package's PRNGKey(7)
 DEFAULT_WARP_BATCH = 32
+# What the telemetry parsers raise for a source without (readable)
+# telemetry: no such file or a synthetic URI, no GoPro MET track or no
+# such stream in it, a truncated box or KLV. Only these mean "no
+# telemetry"; anything else (a device or kernel error) propagates.
+NO_TELEMETRY = (OSError, ValueError, struct.error)
 
 PROJECTION_MODELS = {
     "rect": CameraModel.RECTILINEAR,
@@ -170,9 +200,6 @@ class RenderOptions:
 
 # (option, value that this package runs, ROADMAP.md item that ports the rest)
 _UNPORTED = (
-    ("gyro", (False,), "horizon/gyro/rolling"),
-    ("horizon_lock", (False,), "horizon/gyro/rolling"),
-    ("rolling_shutter", (0.0,), "horizon/gyro/rolling"),
     ("interp", ("bilinear",), "interp/projection/prefilter modes"),
     ("prefilter", ("off",), "interp/projection/prefilter modes"),
     ("projection", ("rect", "flat", "gnomonic"), "interp/projection/prefilter modes"),
@@ -523,7 +550,8 @@ def analyse(source: str, options: RenderOptions,
 
     Paired mode tracks chunks of ``--analysis-chunk`` frames; tracked mode
     runs frame by frame whatever the chunk (the JAX package's chunked scan
-    and per-frame steps give the same trajectory)."""
+    and per-frame steps give the same trajectory). With ``--horizon-lock``
+    the trajectory also carries ``up0`` where the source has telemetry."""
     prof = profiler or StageProfiler()
     mode = resolve_analysis_mode(options, device)
     dev = torch.device(device)
@@ -589,18 +617,132 @@ def analyse(source: str, options: RenderOptions,
             rotvecs = so3.log(torch.cat(r_list)).cpu().numpy().astype(np.float64)
         else:
             rotvecs = np.zeros((0, 3))
+    # Telemetry extraction and gravity integration are pure cost unless
+    # the horizon lock consumes the result.
+    up0 = (_estimate_up0(source, float(first) / float(meta.fps), dev)
+           if options.horizon_lock else None)
     return Trajectory(params=rotvecs, kind="so3", fps=meta.fps,
-                      width=meta.width, height=meta.height, source=source)
+                      width=meta.width, height=meta.height, source=source,
+                      up0=up0)
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
+
+def _estimate_up0(source: str, t0: float, device) -> Optional[np.ndarray]:
+    """World-up in frame-0 camera coordinates from the source's GPMF GYRO
+    and ACCL streams, or None for a source without them: ``--horizon-lock``
+    then takes the first frame as level."""
+    try:
+        imu = extract_imu(source)
+    except NO_TELEMETRY:
+        return None
+    if imu[b"GYRO"] is None or imu[b"ACCL"] is None:
+        return None
+    omega, ts = imu[b"GYRO"]
+    accl, accl_ts = imu[b"ACCL"]
+    return estimate_up_direction(omega, ts, accl, accl_ts, t0=t0, device=device)
+
+
+def _gyro_frame_times(source: str, gyro_ts):
+    """(frame_ts, fps, width, height): video frame timestamps, from the
+    container's video track when it has one, else a grid at the reader's
+    frame rate. Only a telemetry-only file, a container whose tracks
+    parse and hold no video, gets a 30 fps grid over the gyro span: a
+    video the readers cannot open (a missing decoder included) raises."""
+    frame_ts = None
+    meta_w = meta_h = 0
+    fps = Fraction(30, 1)
+    try:
+        tracks = parse_tracks(source)
+    except NO_TELEMETRY:
+        tracks = []
+    for track in tracks:
+        if track.handler_type == b"vide" and track.sample_times:
+            frame_ts = np.asarray(track.sample_times)
+            if len(frame_ts) > 1:
+                fps = Fraction(
+                    1.0 / float(np.median(np.diff(frame_ts)))).limit_denominator(1001)
+            break
+    if frame_ts is None:
+        if tracks and all(track.handler_type != b"vide" for track in tracks):
+            n = int((gyro_ts[-1] - gyro_ts[0]) * 30.0) + 1
+        else:
+            reader = open_reader(source, device="cpu")
+            meta = reader.meta
+            reader.close()
+            fps = meta.fps
+            meta_w, meta_h = meta.width, meta.height
+            n = meta.num_frames or int((gyro_ts[-1] - gyro_ts[0]) * float(fps)) + 1
+        frame_ts = gyro_ts[0] + np.arange(n) / float(fps)
+    return frame_ts, fps, meta_w, meta_h
+
+
+def _trimmed_frame_times(source: str, gyro_ts, options: RenderOptions,
+                         meta: Optional[VideoMeta] = None):
+    """:func:`_gyro_frame_times` cut to the trim window, as the visual
+    analyser honours it. A window given in seconds is counted at the frame
+    rate of ``meta``, the encode's reader, where there is one, else at the
+    rate of the frame times."""
+    frame_ts, fps, meta_w, meta_h = _gyro_frame_times(source, gyro_ts)
+    if meta is None:
+        meta = VideoMeta(meta_w, meta_h, fps, len(frame_ts))
+    first, last = _frame_range(
+        VideoMeta(meta.width, meta.height, meta.fps, len(frame_ts)), options)
+    return frame_ts[first:min(last, len(frame_ts))], fps, meta_w, meta_h
+
+
+def analyse_gyro(source: str, options: RenderOptions,
+                 profiler: Optional[StageProfiler] = None,
+                 device="cuda") -> Trajectory:
+    """Trajectory from the GPMF gyro track instead of visual tracking:
+    integrate the angular-rate samples on SO(3) and resample at the frame
+    timestamps. No frame is decoded, and texture-poor footage is no
+    obstacle. A source without a gyro stream raises what the parsers
+    raise (:data:`NO_TELEMETRY`)."""
+    prof = profiler or StageProfiler()
+    dev = torch.device(device)
+    with prof.stage("gyro-parse"):
+        omega, ts = extract_gyro(source)
+    # encode() indexes corrections from the trimmed range's first frame,
+    # and the trajectory rebases there (integrate_gyro's first resample
+    # time is the identity).
+    frame_ts, fps, meta_w, meta_h = _trimmed_frame_times(source, ts, options)
+    if len(frame_ts) == 0:
+        raise ValueError("trim window selects no frames")
+
+    with prof.stage("gyro-integrate"):
+        r = integrate_gyro(_f32(omega, dev), _f32(ts, dev), _f32(frame_ts, dev))
+        # integrate_gyro returns the attitude R_t (world-from-camera
+        # increments); the measured trajectory is C_t C_0^-1 = R_t^-1.
+        rotvecs = -so3.log(r).cpu().numpy().astype(np.float64)
+
+    up0 = None
+    if options.horizon_lock:
+        try:
+            accl, accl_ts = extract_accl(source)
+        except NO_TELEMETRY:
+            pass  # no ACCL stream: the lock takes the first frame as level
+        else:
+            up0 = estimate_up_direction(omega, ts, accl, accl_ts,
+                                        t0=float(frame_ts[0]), device=dev)
+    return Trajectory(params=rotvecs, kind="so3", fps=fps, width=meta_w,
+                      height=meta_h, source=source, up0=up0)
 
 
 # --- phase 2: encode -------------------------------------------------------
 
 
 def _lock_and_attitude(measured: torch.Tensor, virtual: torch.Tensor,
-                       options: RenderOptions) -> torch.Tensor:
-    """corr = measured . virtual^T (identity when not stabilising), then
-    the --roll/--pitch/--yaw attitude."""
-    if options.stabilise == "none":
+                       options: RenderOptions, up) -> torch.Tensor:
+    """corr = measured . virtual^T (identity when neither stabilising nor
+    levelling), with the virtual camera rolled level against ``up`` under
+    ``--horizon-lock``, then the --roll/--pitch/--yaw attitude."""
+    if options.horizon_lock:
+        virtual = level_horizon(virtual, up)
+        corr = so3.matmul(measured, so3.transpose(virtual))
+    elif options.stabilise == "none":
         corr = torch.eye(3, dtype=measured.dtype,
                          device=measured.device).expand(measured.shape)
     else:
@@ -617,9 +759,16 @@ def _kalman_virtual(measured: torch.Tensor) -> torch.Tensor:
     return smooth_rotations_kalman(measured.cpu()).to(measured.device)
 
 
-def make_window_corrections(radius: int, options: RenderOptions):
+def _up_vector(up0) -> np.ndarray:
+    """``up0`` as float32, the first frame taken as level where it is None."""
+    return np.asarray(DEFAULT_UP if up0 is None else up0, np.float32)
+
+
+def make_window_corrections(radius: int, options: RenderOptions,
+                            up0: Optional[np.ndarray]):
     """(B + 2 radius, 3, 3) measured window -> (B, 3, 3) corrections;
-    radius 0 for none and fixed.
+    radius 0 for none and fixed. ``up0`` is world-up in frame-0 camera
+    coordinates for ``--horizon-lock`` (None: ``[0, -1, 0]``).
 
     The two-phase path calls it with the whole replicate-padded
     trajectory, the streaming path per emitted batch with clamp-replicated
@@ -633,6 +782,7 @@ def make_window_corrections(radius: int, options: RenderOptions):
     if options.smoother not in ("savgol", "kalman"):
         raise ValueError(f"unknown smoother {options.smoother!r}")
     w = torch.from_numpy(savgol_weights(radius, order=2))
+    up = torch.from_numpy(_up_vector(up0))
 
     def window_corr(window: torch.Tensor) -> torch.Tensor:
         measured = window[radius: window.shape[0] - radius]
@@ -646,7 +796,7 @@ def make_window_corrections(radius: int, options: RenderOptions):
         else:
             sm = sg_conv(window.reshape(-1, 9), w)
             virtual = so3.project(sm.reshape(-1, 3, 3))
-        return _lock_and_attitude(measured, virtual, options)
+        return _lock_and_attitude(measured, virtual, options, up)
 
     return window_corr
 
@@ -661,10 +811,11 @@ def compute_corrections(traj: Trajectory, options: RenderOptions,
     if options.stabilise == "smooth" and options.smoother == "kalman":
         # The global smoother: forward filter and RTS over the whole clip.
         virtual = _kalman_virtual(measured)
-        return _lock_and_attitude(measured, virtual, options).cpu().numpy()
+        up = torch.from_numpy(_up_vector(traj.up0))
+        return _lock_and_attitude(measured, virtual, options, up).cpu().numpy()
     radius = (min(options.stabilise_radius, max(t - 1, 1))
               if options.stabilise == "smooth" else 0)
-    fn = make_window_corrections(radius, options)
+    fn = make_window_corrections(radius, options, traj.up0)
     window = measured
     if radius:
         window = torch.cat([measured[:1].expand(radius, 3, 3), measured,
@@ -686,7 +837,11 @@ class FrameWarper:
     camera (kernel K1 on CUDA tensors): a frame batch to uint8
     (:meth:`warp_yuv_batch`, the encode path), one frame to uint8
     (:meth:`warp_yuv`) or one frame's float planes to float32
-    (:meth:`__call__`, the compare grid's rotation cells)."""
+    (:meth:`__call__`, the compare grid's rotation cells).
+
+    Each entry also takes the rolling-shutter form of its rotations, one
+    per 8-row luma tile row: (T, ny, 3, 3) for the batch, (ny, 3, 3) for
+    one frame. Chroma tile row j then takes luma tile row 2j's rotation."""
 
     def __init__(self, in_cam: Camera, out_cam: Camera):
         self.in_cam = in_cam
@@ -697,8 +852,8 @@ class FrameWarper:
         self.out_half = scaled_camera(out_cam, 0.5)
 
     def warp_yuv_batch(self, ys, us, vs, rotations: torch.Tensor):
-        """Per-frame plane sequences + (T, 3, 3) rotations -> list of T
-        uint8 (y, u, v) triples."""
+        """Per-frame plane sequences + (T, 3, 3) or (T, ny, 3, 3)
+        rotations -> list of T uint8 (y, u, v) triples."""
         wy, wu, wv = warp_kernel.warp_yuv_batch(
             torch.stack(list(ys)), torch.stack(list(us)), torch.stack(list(vs)),
             rotations, self.out_cam, self.in_cam, self.out_half, self.in_half,
@@ -706,20 +861,23 @@ class FrameWarper:
         return list(zip(wy, wu, wv))
 
     def __call__(self, y, u, v, rotation: torch.Tensor):
-        """One frame's float32 planes + one (3, 3) rotation -> float32
-        ``(wy, wu, wv)``, neither rounded nor clamped: luma in one launch,
-        U and V sharing one map in another. Chroma samples centred on 128
-        so regions outside the image come out neutral, not green."""
+        """One frame's float32 planes + one (3, 3) rotation or a
+        (ny, 3, 3) stack -> float32 ``(wy, wu, wv)``, neither rounded nor
+        clamped: luma in one launch, U and V sharing one map in another.
+        Chroma samples centred on 128 so regions outside the image come
+        out neutral, not green."""
         size = (self.out_h, self.out_w)
         wy = warp_kernel.warp_frame_f32(y, rotation, self.out_cam, self.in_cam, size)
         wc = warp_kernel.warp_planes_f32(
-            torch.stack([u, v]), rotation, self.out_half, self.in_half,
+            torch.stack([u, v]),
+            warp_kernel.chroma_rotations(rotation, (), self.out_h // 2),
+            self.out_half, self.in_half,
             (self.out_h // 2, self.out_w // 2), border=128.0)
         return wy, wc[0], wc[1]
 
     def warp_yuv(self, y, u, v, rotation: torch.Tensor):
-        """One frame's uint8 planes + one (3, 3) rotation -> uint8
-        ``(wy, wu, wv)``."""
+        """One frame's uint8 planes + one (3, 3) rotation or a (ny, 3, 3)
+        stack -> uint8 ``(wy, wu, wv)``."""
         return warp_kernel.warp_yuv(
             y, u, v, rotation, self.out_cam, self.in_cam, self.out_half,
             self.in_half, (self.out_h, self.out_w))
@@ -735,6 +893,11 @@ def encode(source: str, dest: Optional[str], traj: Trajectory,
     in_cam, out_cam = build_cameras(meta, options)
     corrections = compute_corrections(traj, options, dev)
     warper = FrameWarper(in_cam, out_cam)
+    if options.rolling_shutter:
+        with prof.stage("scanline"):
+            corrections = _scanline_corrections(
+                source, traj, corrections, options, meta, in_cam, out_cam,
+                num_tile_rows(warper.out_h), dev)
     out_meta = VideoMeta(width=warper.out_w, height=warper.out_h,
                          fps=output_fps(options, meta),
                          num_frames=traj.num_frames)
@@ -745,10 +908,42 @@ def encode(source: str, dest: Optional[str], traj: Trajectory,
     return out_meta
 
 
+def _scanline_corrections(source: str, traj: Trajectory, corrections: np.ndarray,
+                          options: RenderOptions, meta: VideoMeta,
+                          in_cam: Camera, out_cam: Camera, ny: int,
+                          device) -> np.ndarray:
+    """``--rolling-shutter``: (T, 3, 3) per-frame corrections -> (T, ny,
+    3, 3) per-tile-row rotations (scanline-time poses).
+
+    With ``--gyro`` the poses come from the telemetry at every scanline
+    time (acceleration within a frame included); for a source without a
+    gyro stream, or whose frame times do not cover the trajectory, and
+    without ``--gyro``, from the trajectory's frame-rate velocity."""
+    fractions = scan_fractions(out_cam, in_cam, ny).to(device)
+    corr = _f32(corrections, device)
+    telemetry = None
+    if options.gyro:
+        try:
+            telemetry = extract_gyro(source)
+        except NO_TELEMETRY:
+            pass  # the velocity model below
+    if telemetry is not None:
+        omega, gts = telemetry
+        f_ts = _trimmed_frame_times(source, gts, options, meta)[0][: traj.num_frames]
+        if len(f_ts) == traj.num_frames:
+            return rs_row_rotations_gyro(
+                corr, _f32(omega, device), _f32(gts, device), _f32(f_ts, device),
+                options.rolling_shutter / float(meta.fps), fractions).cpu().numpy()
+    measured = torch.from_numpy(traj.rotations()).to(device)
+    return rs_row_rotations(corr, measured, options.rolling_shutter,
+                            fractions).cpu().numpy()
+
+
 def _batched_encode_loop(reader, sink, corrections, warp_batch_fn, options,
                          prof, first, last, total, device):
     """Device-batched encode: prefetched frames, per-batch rotation stacks
-    uploaded up front, the tail padded with its last frame (padded outputs
+    ((T, 3, 3), or (T, ny, 3, 3) with ``--rolling-shutter``) uploaded up
+    front, the tail padded with its last frame (padded outputs
     dropped), outputs read back and written on a worker thread."""
     writer = AsyncFrameWriter(sink)
     corr = np.asarray(corrections, np.float32)
@@ -911,6 +1106,8 @@ def _analyse_family(family: str, source: str, options: RenderOptions, prof,
         from video_annotator_tpu_torch.models.deshake import analyse_deshake
 
         return analyse_deshake(source, options, prof, device=device)
+    if options.gyro:
+        return analyse_gyro(source, options, prof, device=device)
     return analyse(source, options, prof, device=device)
 
 
@@ -933,9 +1130,12 @@ def check_family(options: RenderOptions) -> str:
         if options.rolling_shutter:
             raise ValueError("--rolling-shutter needs the rotation family "
                              "(per-scanline camera poses)")
-        if options.streaming:
+        if options.streaming and not options.gyro:
             raise ValueError("--streaming is the rotation family's single-pass "
                              "mode; 2D families use the two-phase path")
+    if options.rolling_shutter and options.streaming:
+        raise ValueError("--rolling-shutter uses the two-phase path (scanline "
+                         "velocities need the frame after each frame)")
     return family
 
 
@@ -943,19 +1143,21 @@ def render(source: str, dest: Optional[str],
            options: Optional[RenderOptions] = None,
            profiler: Optional[StageProfiler] = None, device="cuda") -> None:
     """Two-phase render with trajectory checkpoint/resume (``<dest>.traj.npz``),
-    or the single-pass ``--streaming`` render."""
+    or the single-pass ``--streaming`` render. ``--gyro`` takes the
+    two-phase path even with ``--streaming``: its analyse decodes nothing."""
     options = options or RenderOptions()
     prof = profiler or StageProfiler()
     family = check_family(options)
     check_ported(options)
-    if options.streaming:
+    if options.streaming and not options.gyro:
         from video_annotator_tpu_torch.pipeline.streaming import render_streaming
 
         render_streaming(source, dest, options, prof, device=device)
         if options.verbose:
             print(prof.report())
         return
-    needs_motion = options.stabilise != "none"
+    # The horizon lock needs the measured attitude even when not stabilising.
+    needs_motion = options.stabilise != "none" or options.horizon_lock
     tpath = trajectory_path(dest) if dest else None
     if needs_motion and not options.encode_only:
         traj = _analyse_family(family, source, options, prof, device)

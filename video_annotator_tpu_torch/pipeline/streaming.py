@@ -19,8 +19,13 @@ paired analyse's. ``tracked`` runs :class:`Tracker` frame by frame.
 
 The ring holds ``radius + warp_batch`` decoded YUV frames on the device
 (about 17 MB a frame at 3840x2880). The JAX package's check of each
-batch's correction against the warp kernel's window budget is dropped:
+batch's correction against the warp kernel's window budget (sized from
+the attitude and, under ``--horizon-lock``, the initial tilt) is dropped:
 K1 reads the whole source plane and has no window to overflow.
+
+``--horizon-lock`` tracks even with ``--stabilise none`` (the lock needs
+the measured attitude) and takes world-up from the source's telemetry
+where it has any, else the first frame as level.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from video_annotator_tpu_torch.pipeline.render import (
     PairTracker,
     RenderOptions,
     Tracker,
+    _estimate_up0,
     build_cameras,
     check_ported,
     make_window_corrections,
@@ -79,13 +85,17 @@ def render_streaming(source: str, dest: Optional[str],
     mode = resolve_analysis_mode(options, device)
     dev = torch.device(device)
     reader, meta, first, last = open_trimmed(source, options, dev)
-    needs_motion = options.stabilise != "none"
+    # stabilise none without a horizon lock needs no measured attitude:
+    # the tracker is skipped and the corrections are the attitude alone.
+    needs_motion = options.stabilise != "none" or options.horizon_lock
     pair_tracker = tracker = None
     if needs_motion and mode == "paired":
         pair_tracker = PairTracker(meta, options, dev)
     elif needs_motion:
         tracker = Tracker(meta, options, dev)
     in_cam, out_cam = build_cameras(meta, options)
+    up0 = (_estimate_up0(source, float(first) / float(meta.fps), dev)
+           if options.horizon_lock else None)
     warper = FrameWarper(in_cam, out_cam)
     n_expect = (last - first) if meta.num_frames else 0
     out_meta = VideoMeta(width=warper.out_w, height=warper.out_h,
@@ -128,7 +138,7 @@ def render_streaming(source: str, dest: Optional[str],
             # the window, so len(rots) - 1 caps the radius as in two-phase.
             if options.stabilise == "smooth":
                 radius_eff = min(want_radius, max(len(rots) - 1, 1))
-            batch_corr = make_window_corrections(radius_eff, options)
+            batch_corr = make_window_corrections(radius_eff, options, up0)
         t0 = emitted
         last_i = len(rots) - 1
         window = torch.stack([rots[min(max(k, 0), last_i)]
@@ -196,5 +206,6 @@ def render_streaming(source: str, dest: Optional[str],
     if dest and rots and needs_motion:
         rotvecs = so3.log(torch.stack(rots)).cpu().numpy().astype(np.float64)
         Trajectory(params=rotvecs, kind="so3", fps=meta.fps, width=meta.width,
-                   height=meta.height, source=source).save(trajectory_path(dest))
+                   height=meta.height, source=source,
+                   up0=up0).save(trajectory_path(dest))
     return out_meta

@@ -106,6 +106,12 @@ def log(R: torch.Tensor) -> torch.Tensor:
     return qv * scale[..., None]
 
 
+def slerp(R0: torch.Tensor, R1: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Geodesic interpolation between rotations: R0 exp(t log(R0^T R1))."""
+    rel = matmul(transpose(R0), R1)
+    return matmul(R0, exp(t[..., None] * log(rel)))
+
+
 def orthonormalize(M: torch.Tensor) -> torch.Tensor:
     """One Newton-Schulz step toward the nearest rotation: M(3I - M^T M)/2.
 
