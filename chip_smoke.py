@@ -22,7 +22,14 @@ the last line is printed):
    through every entry at the same 4K shapes with (T, 440, 3, 3) stacks,
    each beside the time of the same launch with whole-frame rotations,
    and once with a stack shorter than ceil(out_h / 8) (the clipped row
-   index).
+   index). K1's variants in ``csrc/warp_modes.cu`` (``MODE_CASES``): the
+   4-tap (lanczos), ray-grid (an equirect output of the stock canvas) and
+   per-tile mip (``--prefilter auto --scale 0.4``: a 3840x2880 source to
+   1872x1408) modes alone through every entry, with one rotation per frame
+   and one per tile row, then bicubic and the combinations the renders of
+   3l launch; each counted under its own kernel object alone: the largest
+   difference and the number of differing values, the kernel timed alone
+   on prepared levels (the time to build the levels logged beside it).
 3. Renders through the CLI on 3840x2880 synthetic clips (64 frames unless
    stated), each with every launch count set to 0 just before it and read
    just after:
@@ -74,6 +81,22 @@ the last line is printed):
       --rolling-shutter 0.75 --horizon-lock`` from that trajectory file:
       the first, middle and last frames within one count of the plain
       per-tile-row warp.
+   l. K1's modes through the CLI, 24 frames each (the grids 8): ``--interp
+      lanczos`` (v360's resampler), ``--projection equirect``,
+      ``--prefilter auto --scale 0.4`` (the level maps must engage a level;
+      the share of tiles at each level is printed) and the same with
+      ``--streaming`` (trajectory equal, frames within one count),
+      ``--filter vidstab --interp bicubic`` (vidstab's resampler, between
+      identity cameras), all three modes at once with ``--rolling-shutter
+      0.75`` (bicubic, stereographic, prefilter at 0.4: the batch's
+      ``*_bicubic_rays_mip_rs`` objects), ``--compare none,smooth --prefilter auto
+      --scale 0.4`` (the float entries' mip mode) and ``--compare
+      none,smooth,vidstab --interp bicubic --projection stereographic``
+      (the float entries' 4-tap ray-grid variant, the one-frame entries'
+      4-tap). Each launches its variants' kernel objects, every one of them
+      measured in phase 2; the first and last frames of
+      each are held to the plain warp of the same mode, the differing
+      values counted.
    The deshake analyse and the compare render then run once more under
    torch.profiler, for the device's busy time and idle share.
 4. Where tracked analyse spends its time at 4K: host wall time per step
@@ -178,6 +201,41 @@ WARP_MAP_OPS_RECT = 28
 WARP_FISHEYE_OPS = 20
 WARP_TAP_OPS = 20
 WARP_TAP_OPS_F32 = 17  # the float mode neither rounds nor clamps
+# K1's modes (csrc/warp_modes.cu). A ray grid replaces the inline ray (4)
+# and its 3x3 product (12) by the full product with a third component
+# (15). A 4-tap weight: bicubic |t|, its two cubics (11) and two tests;
+# lanczos |t|, the clamp, pi t, pi t / 2, two sinf, (pi t)^2, the
+# division, the products (3) and two tests; lanczos also sums each set of
+# four and multiplies the sums (7 per pixel) and divides once per plane.
+# Per pixel the floors and fractions, 4. Per plane 16 taps, each its
+# bounds tests (2), the border subtracted, its product and its sum, then
+# four row products and sums and the border added: 4 x 4 x 5 + 8 + 1 = 89,
+# 3 more to round and clamp. A mip pixel reads its level, scales both
+# coordinates (3 each) and picks the level (1): 8.
+WARP_RAYS_MAP_OPS = WARP_MAP_OPS_RECT - 4 - 12 + 15
+WEIGHT_OPS = {"bicubic": 14, "lanczos": 13}
+LANCZOS_NORM_OPS = 7
+TAP4_OPS_F32 = 89
+TAP4_OPS = TAP4_OPS_F32 + 3
+MIP_OPS = 8
+MIP_SCALE = 0.4  # --scale of the prefilter render: a 4K source at about 1080p
+MODE_FRAMES = 24  # frames of each render of K1's modes
+# K1's variants in csrc/warp_modes.cu held to their plain versions and timed
+# at 4K, as (interp, projection, --prefilter auto at MIP_SCALE, entries,
+# rotation forms: per tile row or not): each mode alone through every entry
+# in both forms, lanczos being v360's resampler; then bicubic and the
+# combinations in the entries and forms that the mode renders launch.
+MODE_ENTRIES = ("warp_luma", "warp_chroma", "warp_frame_f32", "warp_planes_f32",
+                "warp_yuv_luma", "warp_yuv_chroma")
+MODE_CASES = (
+    ("lanczos", "rect", False, MODE_ENTRIES, (False, True)),
+    ("bilinear", "equirect", False, MODE_ENTRIES, (False, True)),
+    ("bilinear", "rect", True, MODE_ENTRIES, (False, True)),
+    ("bicubic", "rect", False, ("warp_luma", "warp_chroma", "warp_yuv_luma",
+                                "warp_yuv_chroma"), (False,)),
+    ("bicubic", "stereographic", False, ("warp_frame_f32", "warp_planes_f32"), (False,)),
+    ("bicubic", "stereographic", True, ("warp_luma", "warp_chroma"), (True,)),
+)
 STAGE_OPS = 3
 LK_TEMPLATE_OPS = 24 * 23 * 9 + 441 * 26
 LK_ITER_OPS = 441 * 14
@@ -494,6 +552,153 @@ def phase_warp_rs(dev, results):
           "the clipped row index disagrees")
 
 
+def level_shares(levels) -> list:
+    """The share of the level map's tiles at each level 0..max."""
+    lv = levels.levels.flatten().to(torch.int64)
+    return [float((lv == i).float().mean()) for i in range(levels.max_level + 1)]
+
+
+def variant_warper(dev, interp: str, projection: str, prefilter: bool):
+    """A FrameWarper at the 4K shapes in K1's modes: the stock cameras, or
+    another output projection of the stock canvas, and with ``prefilter``
+    ``--scale 0.4`` of them with the level maps of a 8 degree budget."""
+    meta = trender.VideoMeta(W, H, 30, FRAMES)
+    extra = dict(scale=MIP_SCALE, prefilter="auto") if prefilter else {}
+    cams = trender.build_cameras(meta, stock_options(projection=projection, **extra))
+    return trender.FrameWarper(*cams, 8.0, prefilter, interp, dev)
+
+
+def mode_bound(interp, rays, mip, src, out, rot, in_cam, stacks, levels) -> dict:
+    """The least time of one modes launch: each input byte read once (the
+    ray grid once per launch, the level planes in the share of tiles that
+    read them), each output byte written once; the operations of
+    ``csrc/warp_modes.cu`` per pixel."""
+    item = src.element_size()
+    planes = src.shape[-3]
+    oh, ow = out.shape[-2:]
+    pixels = out.numel() // planes
+    ops = warp_map_ops(in_cam)
+    nbytes = item * out.numel() + 4 * rot.numel()
+    share = [1.0]
+    if rays:
+        ops += WARP_RAYS_MAP_OPS - WARP_MAP_OPS_RECT
+        nbytes += 12 * oh * ow
+    if mip:
+        ops += MIP_OPS
+        share = level_shares(levels)
+        nbytes += levels.levels.numel() + sum(
+            s.numel() * s.element_size() * f for s, f in zip(stacks, share[1:]))
+    nbytes += item * src.numel() * share[0]
+    if interp == "bilinear":
+        tap_ops = WARP_TAP_OPS if item == 1 else WARP_TAP_OPS_F32
+    else:
+        ops += 8 * WEIGHT_OPS[interp] + 4
+        tap_ops = TAP4_OPS if item == 1 else TAP4_OPS_F32
+        if interp == "lanczos":
+            ops += LANCZOS_NORM_OPS
+            tap_ops += 1
+    return bound(nbytes, pixels * (ops + planes * tap_ops))
+
+
+def phase_warp_modes(dev, results):
+    """K1's variants in ``csrc/warp_modes.cu`` (:data:`MODE_CASES`) at the
+    4K shapes: each launched once through its entry and counted under its
+    own kernel object alone, held to its plain version (largest
+    difference, differing values), the kernel timed alone on prepared
+    levels (the levels' build timed beside it), the plain version too."""
+    cfg = SyntheticSource.from_uri(SOURCE).config
+    cam = cfg.camera()
+    rots_src = torch.from_numpy(cfg.rotations()[:WARP_FRAMES]).to(dev)
+    planes = [render_frame(cam, r) for r in rots_src]
+    ys = torch.stack([p[0] for p in planes])[:, None].contiguous()
+    uv = torch.stack([torch.stack([p[1], p[2]]) for p in planes]).contiguous()
+    g = torch.Generator().manual_seed(29)
+    whole = so3.exp(torch.randn((WARP_FRAMES, 3), generator=g) * 0.02).to(dev)
+    one = warp_kernel.ONE_FRAME_KERNELS
+    # entry -> (source planes, chroma, whole-frame kernel objects)
+    sources = {
+        "warp_luma": (ys, False, warp_kernel.BATCH_KERNELS),
+        "warp_chroma": (uv, True, warp_kernel.BATCH_KERNELS),
+        "warp_frame_f32": (ys[0].to(torch.float32), False, None),
+        "warp_planes_f32": (uv[0].to(torch.float32), True, None),
+        "warp_yuv_luma": (ys[:1], False, one),
+        "warp_yuv_chroma": (uv[:1], True, one),
+    }
+    for interp, projection, prefilter, entries, forms in MODE_CASES:
+        warper = variant_warper(dev, interp, projection, prefilter)
+        oh, ow = warper.out_h, warper.out_w
+        if prefilter:
+            for which, levels in zip(("luma", "chroma"), warper.levels):
+                shares = ", ".join(f"level {i} {f:.4f}" for i, f in enumerate(level_shares(levels)))
+                log(f"[K1 modes] {interp} {projection} --scale {MIP_SCALE} {which} level map "
+                    f"{tuple(levels.levels.shape)}: {shares}")
+                check(levels.max_level >= 1, f"the {which} level map engages no level")
+        rows = row_stacks(dev, (WARP_FRAMES,), num_tile_rows(oh), 31)
+        rows_c = warp_kernel.chroma_row_rotations(rows, num_tile_rows(oh // 2))
+        for base in entries:
+            src, is_chroma, kernels = sources[base]
+            oc, ic = (warper.out_half, warper.in_half) if is_chroma else (warper.out_cam,
+                                                                         warper.in_cam)
+            size = (oh // 2, ow // 2) if is_chroma else (oh, ow)
+            border = 128.0 if is_chroma else 0.0
+            levels = warper.levels[int(is_chroma)]
+            f32 = src.dtype == torch.float32
+            suffix = warp_kernel.variant(oc, interp, levels)
+            for rs in forms:
+                rot = (rows_c if is_chroma else rows) if rs else whole
+                rot = (rot[0] if f32 else rot[:src.shape[0]]).contiguous()
+                if base == "warp_frame_f32":
+                    def entry():
+                        return warp_kernel.warp_frame_f32(src[0], rot, oc, ic, size, border,
+                                                          interp, levels)[None]
+                elif f32:
+                    def entry():
+                        return warp_kernel.warp_planes_f32(src, rot, oc, ic, size, border,
+                                                           interp, levels)
+                else:
+                    def entry():
+                        return warp_kernel.warp_planes_u8(src, rot, oc, ic, size, border,
+                                                          kernels, interp, levels)
+                plain = (warp_kernel.warp_planes_f32_plain if f32
+                         else warp_kernel.warp_planes_u8_plain)
+                want = plain(src, rot, oc, ic, size, border, interp, levels)
+                before = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+                got = entry()
+                torch.cuda.synchronize()
+                name = base + suffix + ("_rs" if rs else "")
+                moved = {n for n, k in cuda_lib.KERNELS.items() if k.launches != before.get(n, 0)}
+                # A uint8 mip launch stages its levels through K3 first.
+                staged = {"stage"} if levels is not None and not f32 else set()
+                obj = cuda_lib.KERNELS.get(name)
+                check(moved == {name} | staged and obj.launches == before.get(name, 0) + 1,
+                      f"{name}: launched {moved}")
+                diff = (got.to(torch.float32) - want.to(torch.float32)).abs()
+                max_err, differ = float(diff.max()), int((diff > 0).sum())
+                agrees = got.shape == want.shape and (
+                    max_err <= F32_ATOL if f32 else
+                    (max_err <= 1 and float((diff == 0).float().mean()) >= MIN_EQUAL))
+                stacks = warp_kernel.level_stacks(src, levels, border)
+                out = torch.empty_like(got)
+                ms = cuda_ms(lambda: warp_kernel.launch_modes(
+                    src, out, rot, oc, ic, border, interp, levels, stacks, obj), 10)
+                plain_ms = cuda_ms(lambda: plain(src, rot, oc, ic, size, border, interp, levels),
+                                   2, 0)
+                b = mode_bound(interp, oc.model != CameraModel.RECTILINEAR, levels is not None,
+                               src, got, rot, ic, stacks, levels)
+                extra = ""
+                if levels is not None:
+                    build_ms = cuda_ms(lambda: warp_kernel.level_stacks(src, levels, border), 5)
+                    extra = (f"; its levels built per call (box_downsample"
+                             f"{', K3' if not f32 else ''}) {build_ms:.3f} ms")
+                log(f"[K1 {name}] {projection} output, {tuple(src.shape)} {src.dtype} with "
+                    f"{tuple(rot.shape)} rotations -> {tuple(got.shape)}: max |diff| "
+                    f"{max_err:.3g}, {differ} of {got.numel()} values differ; kernel "
+                    f"{ms:.3f} ms, plain {plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms "
+                    f"({b['bound_by']}){extra}")
+                check(agrees, f"{name} disagrees with plain")
+                results[name] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, **b)
+
+
 def lk_chunk(dev):
     """A 17-frame chunk as the paired analyse sees it: 4K frames
     box-downsampled to 1920x1440, 200 corners per frame detected at
@@ -675,7 +880,7 @@ def drive(name, argv, label, needs, frames=FRAMES, grid=False):
     log(f"[{name}] {' '.join(argv[3:])}: analysis mode {seen.get('mode')!r}; "
         f"launches {launches}")
     for kname in needs:
-        check(launches[kname] > 0, f"[{name}] kernel {kname} was not launched")
+        check(launches.get(kname, 0) > 0, f"[{name}] kernel {kname} was not launched")
     secs, calls = seen["profiler"].all_totals()
     steady, steady_calls = seen["profiler"].totals()
     log(f"[{name}] per-stage host wall time ({label}), warm-up included; in "
@@ -701,10 +906,10 @@ def check_output_size(name, dest):
           (warper.out_w, warper.out_h, FRAMES), f"[{name}] output has the wrong size")
 
 
-def check_same_trajectory(name, got: Trajectory, want: Trajectory):
+def check_same_trajectory(name, got: Trajectory, want: Trajectory, n: int = FRAMES):
     err = float(np.abs(got.params - want.params).max())
     log(f"[{name}] trajectory max |d rotvec| {err:.3e} rad against the reference run")
-    check(got.num_frames == want.num_frames == FRAMES and err <= TRAJ_ATOL_RAD,
+    check(got.num_frames == want.num_frames == n and err <= TRAJ_ATOL_RAD,
           f"[{name}] trajectory differs")
 
 
@@ -764,9 +969,9 @@ def check_level_frame(dest, traj, dev):
                  (want_y, want_uv[0], want_uv[1]), dev)
 
 
-def check_same_frames(name, got_path, want_path, dev):
+def check_same_frames(name, got_path, want_path, dev, n: int = FRAMES):
     """The first, middle and last frames within one count, >= 99.9% equal."""
-    which = (0, FRAMES // 2, FRAMES - 1)
+    which = (0, n // 2, n - 1)
     for i, (a, b) in enumerate(zip(open_reader(got_path), open_reader(want_path))):
         if i not in which:
             continue
@@ -845,19 +1050,23 @@ def check_deshake_frames(dest, src, dev):
         check_planes(f"deshake, plain warp on {where.type}", t, got, want, dev)
 
 
-def check_compare_cells(dest, src, returned, dev, modes=COMPARE_MODES):
+def check_compare_cells(dest, src, returned, dev, modes=COMPARE_MODES, **opts):
     """The canvas size, and each cell of the first and last frames against
     the plain warp of that cell from the trajectories the grid's own
-    analysers returned."""
+    analysers returned; ``opts`` are the render's ``--interp`` and
+    ``--projection``."""
     n = COMPARE_FRAMES
-    warper = stock_cameras()
-    ch, cw = warper.out_h, warper.out_w
+    interp = opts.get("interp", "bilinear")
+    in_cam, out_cam = trender.build_cameras(trender.VideoMeta(W, H, 30, FRAMES),
+                                            stock_options(**opts))
+    ch = out_cam.height - out_cam.height % 2
+    cw = out_cam.width - out_cam.width % 2
     rows, cols = compare.comparison_grid_size(len(modes))
     meta = open_reader(dest).meta
     log(f"[compare] canvas {meta.width}x{meta.height}, {meta.num_frames} frames, "
         f"{rows}x{cols} cells of {cw}x{ch}")
-    check((meta.width, meta.height, meta.num_frames) == (cw * cols, ch * rows, n)
-          and (rows, cols) == (2, 2), "[compare] canvas has the wrong size")
+    check((meta.width, meta.height, meta.num_frames) == (cw * cols, ch * rows, n),
+          "[compare] canvas has the wrong size")
 
     def corrections(mode):
         """(family, per-frame corrections) of one cell, from its mode."""
@@ -874,14 +1083,19 @@ def check_compare_cells(dest, src, returned, dev, modes=COMPARE_MODES):
         return family, corr
 
     per_mode = [corrections(m) for m in modes]
+    need = max((trender.max_rotation_deg(c) for f, c in per_mode if f == "rotation"),
+               default=0.0)
+    warper = trender.FrameWarper(in_cam, out_cam, max(8.0, need + 0.5),
+                                 opts.get("prefilter") == "auto", interp, dev)
 
     def rotation_cell(planes, rot):
         rot = torch.from_numpy(rot).to(dev)
         y = warp_kernel.warp_planes_f32_plain(
-            planes[0][None], rot, warper.out_cam, warper.in_cam, (ch, cw))[0]
+            planes[0][None], rot, warper.out_cam, warper.in_cam, (ch, cw), 0.0, interp,
+            warper.levels[0])[0]
         uv = warp_kernel.warp_planes_f32_plain(
             torch.stack(planes[1:]), rot, warper.out_half, warper.in_half,
-            (ch // 2, cw // 2), 128.0)
+            (ch // 2, cw // 2), 128.0, interp, warper.levels[1])
         return y, uv[0], uv[1]
 
     def padded(planes):
@@ -899,9 +1113,10 @@ def check_compare_cells(dest, src, returned, dev, modes=COMPARE_MODES):
     def cell(planes, family, corr):
         if family == "rotation":
             return rotation_cell(planes, corr)
-        warp = (similarity.warp_frame_similarity if family == "similarity"
-                else deshake.warp_frame_deshake)
-        return padded(warp(*planes, torch.from_numpy(corr).to(dev)))
+        corr = torch.from_numpy(corr).to(dev)
+        if family == "similarity":
+            return padded(similarity.warp_frame_similarity(*planes, corr, interp=interp))
+        return padded(deshake.warp_frame_deshake(*planes, corr))
 
     for t, canvas in written_frames(dest, (0, n - 1)).items():
         planes = float_frame(dev, src, t)
@@ -913,11 +1128,12 @@ def check_compare_cells(dest, src, returned, dev, modes=COMPARE_MODES):
             check_planes(f"compare cell {mode}", t, got, want, dev)
 
 
-def scanline_rotations(traj, opts, dev):
+def scanline_rotations(traj, opts, dev, warper=None):
     """(T, ny, 3, 3) luma and (T, nyc, 3, 3) chroma row rotations of a
     ``--rolling-shutter`` render of ``traj`` by the velocity model, from
-    the library's parts (not through ``encode``)."""
-    warper = stock_cameras()
+    the library's parts (not through ``encode``), for ``warper``'s
+    cameras (the stock ones by default)."""
+    warper = warper or stock_cameras()
     corr = torch.from_numpy(trender.compute_corrections(traj, opts, dev)).to(dev)
     fractions = scan_fractions(warper.out_cam, warper.in_cam,
                                num_tile_rows(warper.out_h)).to(dev)
@@ -926,32 +1142,40 @@ def scanline_rotations(traj, opts, dev):
     return rows, warp_kernel.chroma_row_rotations(rows, num_tile_rows(warper.out_h // 2))
 
 
-def check_frames_vs_plain(name, dest, rot_y, rot_c, which, dev):
+def check_frames_vs_plain(name, dest, rot_y, rot_c, which, dev, warper=None,
+                          source=SOURCE):
     """The written frames ``which`` against the plain warp of their source
     frames under ``rot_y[t]`` (luma) and ``rot_c[t]`` (chroma): one (3, 3)
-    each, or per-tile-row stacks. Within one count, 99.9% equal."""
-    warper = stock_cameras()
+    each, or per-tile-row stacks, through ``warper``'s cameras and modes
+    (the stock warper by default). Within one count, 99.9% equal; the
+    differing values are counted."""
+    warper = warper or stock_cameras()
     oh, ow = warper.out_h, warper.out_w
-    worst, least = 0, 1.0
+    worst, least, differ = 0, 1.0, 0
     reader = open_reader(dest)
     for t, planes in enumerate(reader):
         if t not in which:
             continue
-        y, u, v = source_frame(dev, SOURCE, t)
+        y, u, v = source_frame(dev, source, t)
         want_y = warp_kernel.warp_planes_u8_plain(
-            y[None, None], rot_y[t:t + 1], warper.out_cam, warper.in_cam, (oh, ow), 0.0)[0, 0]
+            y[None, None], rot_y[t:t + 1], warper.out_cam, warper.in_cam, (oh, ow), 0.0,
+            warper.interp, warper.levels[0])[0, 0]
         want_uv = warp_kernel.warp_planes_u8_plain(
             torch.stack([u, v])[None], rot_c[t:t + 1], warper.out_half, warper.in_half,
-            (oh // 2, ow // 2), 128.0)[0]
+            (oh // 2, ow // 2), 128.0, warper.interp, warper.levels[1])[0]
         for plane, got, want in zip("yuv", planes, (want_y, want_uv[0], want_uv[1])):
-            err, equal = u8_agreement(torch.from_numpy(np.array(got)).to(dev), want)
+            got = torch.from_numpy(np.array(got)).to(dev)
+            err, equal = u8_agreement(got, want)
             worst, least = max(worst, err), min(least, equal)
+            differ += int((got != want).sum()) if got.shape == want.shape else got.numel()
             check(tuple(got.shape) == tuple(want.shape) and err <= 1 and equal >= MIN_EQUAL,
                   f"[{name}] frame {t} plane {plane} differs from its plain warp: "
                   f"max |diff| {err}, equal {equal:.6f}")
+        if t >= max(which):
+            break
     reader.close()
     log(f"[{name}] {len(which)} written frames against their plain warps: max |diff| "
-        f"{worst} count, least equal share {least:.6f}")
+        f"{worst} count, {differ} values differ, least equal share {least:.6f}")
 
 
 def check_one_frame_rs(dest, rot_y, which, dev):
@@ -981,6 +1205,57 @@ def check_one_frame_rs(dest, rot_y, which, dev):
         check(launches[name] == len(which), f"[one-frame rs] {name} was not launched")
 
 
+def mode_warper(dest, dev, **opts):
+    """The render ``dest``'s own warper (cameras, modes, level maps probing
+    its budget) and luma rotations, from its saved trajectory."""
+    o = stock_options(**opts)
+    in_cam, out_cam = trender.build_cameras(trender.VideoMeta(W, H, 30, FRAMES), o)
+    corr = trender.compute_corrections(Trajectory.load(trajectory_path(dest)), o, dev)
+    budget = max(o.max_correction_deg, trender.max_rotation_deg(corr) + 0.5)
+    warper = trender.FrameWarper(in_cam, out_cam, budget, o.prefilter == "auto", o.interp,
+                                 dev)
+    return warper, torch.from_numpy(corr).to(dev), budget
+
+
+def check_mode_render(name, dest, dev, n, **opts):
+    """A render in one of K1's modes: its size, and its first and last
+    frames against the plain warp of the same mode."""
+    warper, corr, budget = mode_warper(dest, dev, **opts)
+    meta = open_reader(dest).meta
+    log(f"[{name}] output {meta.width}x{meta.height}, {meta.num_frames} frames; the largest "
+        f"correction probed by a level map {budget:.3f} deg")
+    check((meta.width, meta.height, meta.num_frames) == (warper.out_w, warper.out_h, n),
+          f"[{name}] output has the wrong size")
+    check_frames_vs_plain(name, dest, corr, corr, (0, n - 1), dev, warper,
+                          source=mode_source(n))
+    return warper
+
+
+def mode_source(n: int) -> str:
+    return f"synthetic://shaky?w={W}&h={H}&n={n}"
+
+
+def check_vidstab_bicubic(dest, dev, n):
+    """The ``--filter vidstab --interp bicubic`` render: its first and last
+    frames against the plain version of K1's 4-tap mode between identity
+    cameras, and within one count of ``warp_frame_similarity``."""
+    traj = Trajectory.load(trajectory_path(dest))
+    opts = trender.RenderOptions(filter="vidstab", stabilise="smooth", interp="bicubic")
+    corr = similarity.similarity_corrections(traj, opts)
+    sim = similarity.SimilarityWarper(W, H, interp="bicubic")
+    mats = torch.from_numpy(similarity.SimilarityWarper.matrices(corr)).to(dev)
+    # The identity cameras make SimilarityWarper's geometry a FrameWarper's.
+    warper = trender.FrameWarper(sim.cam, sim.cam, interp="bicubic")
+    warper.in_half = warper.out_half = sim.cam_c
+    check_frames_vs_plain("vidstab-bicubic", dest, mats, mats, (0, n - 1), dev, warper,
+                          source=mode_source(n))
+    corr = torch.from_numpy(corr).to(dev)
+    for t, got in written_frames(dest, (n // 2,)).items():
+        want = similarity.warp_frame_similarity(*float_frame(dev, mode_source(n), t), corr[t],
+                                                interp="bicubic")
+        check_planes("vidstab-bicubic, warp_frame_similarity", t, got, want, dev)
+
+
 def up_angle_deg(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
@@ -999,7 +1274,7 @@ def phase_renders(dev, label):
         launches, mode, returned, times = drive(
             name, ["render", source, dest] + flags, label, needs, **kw)
         for n, c in launches.items():
-            total[n] += c
+            total[n] = total.get(n, 0) + c
         if counts is not None:
             counts.update(launches)
         return mode, returned, times
@@ -1131,9 +1406,102 @@ def phase_renders(dev, label):
         check_frames_vs_plain("gyro-rolling-shutter", rolling, rot_y, rot_c,
                               (0, FRAMES // 2, FRAMES - 1), dev)
         os.remove(rolling)
+        phase_mode_renders(tmp, run)
         return total
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_mode_renders(tmp, run):
+    """The renders of K1's 4-tap, ray-grid and mip modes (MODE_FRAMES
+    frames each, the grid COMPARE_FRAMES)."""
+    dev = torch.device("cuda")
+    n = MODE_FRAMES
+    src = mode_source(n)
+    stock = ["--stabilise", "smooth", "--preset", PRESET]
+    both = lambda variant: (f"warp_luma_{variant}", f"warp_chroma_{variant}")  # noqa: E731
+
+    lanczos = os.path.join(tmp, "lanczos.y4m")
+    run("lanczos", lanczos, stock + ["--interp", "lanczos"], both("lanczos"), source=src,
+        frames=n)
+    check_mode_render("lanczos", lanczos, dev, n, interp="lanczos")
+    os.remove(lanczos)
+
+    equirect = os.path.join(tmp, "equirect.y4m")
+    run("equirect", equirect, stock + ["--projection", "equirect"], both("rays"), source=src,
+        frames=n)
+    check_mode_render("equirect", equirect, dev, n, projection="equirect")
+    os.remove(equirect)
+
+    pre = os.path.join(tmp, "prefilter.y4m")
+    flags = stock + ["--prefilter", "auto", "--scale", str(MIP_SCALE)]
+    run("prefilter", pre, flags, both("mip"), source=src, frames=n)
+    warper = check_mode_render("prefilter", pre, dev, n, prefilter="auto", scale=MIP_SCALE)
+    for which, levels in zip(("luma", "chroma"), warper.levels):
+        shares = ", ".join(f"level {i} {f:.4f}" for i, f in enumerate(level_shares(levels)))
+        log(f"[prefilter] {which} level map {tuple(levels.levels.shape)}: {shares}")
+        check(levels.max_level >= 1, f"[prefilter] the {which} level map engages no level")
+    streamed = os.path.join(tmp, "prefilter-streaming.y4m")
+    run("prefilter-streaming", streamed, flags + ["--streaming"], both("mip"), source=src,
+        frames=n)
+    check_same_trajectory("prefilter-streaming", Trajectory.load(trajectory_path(streamed)),
+                          Trajectory.load(trajectory_path(pre)), n)
+    check_same_frames("prefilter-streaming", streamed, pre, dev, n)
+    os.remove(pre)
+    os.remove(streamed)
+
+    vid = os.path.join(tmp, "vidstab-bicubic.y4m")
+    run("vidstab-bicubic", vid, ["--filter", "vidstab", "--stabilise", "smooth", "--interp",
+                                 "bicubic"], both("bicubic") + ("lk_level_frame",),
+        source=src, frames=n)
+    check_vidstab_bicubic(vid, dev, n)
+    os.remove(vid)
+
+    combined = os.path.join(tmp, "all-modes.y4m")
+    opts = dict(interp="bicubic", projection="stereographic", prefilter="auto",
+                scale=MIP_SCALE, rolling_shutter=READOUT)
+    flags = stock + ["--interp", "bicubic", "--projection", "stereographic", "--prefilter",
+                     "auto", "--scale", str(MIP_SCALE), "--rolling-shutter", str(READOUT)]
+    run("all-modes-rolling-shutter", combined, flags, both("bicubic_rays_mip_rs"),
+        source=src, frames=n)
+    o = stock_options(**opts)
+    in_cam, out_cam = trender.build_cameras(trender.VideoMeta(W, H, 30, FRAMES), o)
+    geometry = trender.FrameWarper(in_cam, out_cam)
+    rot_y, rot_c = scanline_rotations(Trajectory.load(trajectory_path(combined)), o, dev,
+                                      geometry)
+    need = trender.max_rotation_deg(rot_y.reshape(-1, 3, 3).cpu().numpy())
+    budget = max(o.max_correction_deg, need + 0.5)
+    warper = trender.FrameWarper(in_cam, out_cam, budget, True, "bicubic", dev)
+    check(all(lv.max_level >= 1 for lv in warper.levels),
+          "[all-modes-rolling-shutter] the level maps engage no level")
+    check_frames_vs_plain("all-modes-rolling-shutter", combined, rot_y, rot_c, (0, n - 1),
+                          dev, warper, source=src)
+    os.remove(combined)
+
+    csrc = f"synthetic://shaky?w={W}&h={H}&n={COMPARE_FRAMES}"
+    grid = os.path.join(tmp, "grid-prefilter.y4m")
+    modes = ("none", "smooth")
+    flags = ["--compare", ",".join(modes), "--no-cell-labels", "--preset", PRESET,
+             "--prefilter", "auto", "--scale", str(MIP_SCALE)]
+    _, returned, _ = run("compare-prefilter", grid, flags,
+                         ("warp_frame_f32_mip", "warp_planes_f32_mip"), source=csrc,
+                         frames=COMPARE_FRAMES, grid=True)
+    check_compare_cells(grid, csrc, returned, dev, modes=modes, prefilter="auto",
+                        scale=MIP_SCALE)
+    os.remove(grid)
+
+    grid = os.path.join(tmp, "grid-modes.y4m")
+    modes = ("none", "smooth", "vidstab")
+    flags = ["--compare", ",".join(modes), "--no-cell-labels", "--preset", PRESET,
+             "--interp", "bicubic", "--projection", "stereographic"]
+    _, returned, _ = run(
+        "compare-modes", grid, flags,
+        ("warp_frame_f32_bicubic_rays", "warp_planes_f32_bicubic_rays",
+         "warp_yuv_luma_bicubic", "warp_yuv_chroma_bicubic"),
+        source=csrc, frames=COMPARE_FRAMES, grid=True)
+    check_compare_cells(grid, csrc, returned, dev, modes=modes, interp="bicubic",
+                        projection="stereographic")
+    os.remove(grid)
 
 
 def _device_us(event) -> float:
@@ -1387,6 +1755,7 @@ def main(argv=None) -> int:
     phase_warp_float(dev, results)
     phase_warp_one_frame(dev, results)
     phase_warp_rs(dev, results)
+    phase_warp_modes(dev, results)
     phase_stage_lk(dev, results)
     phase_lk_frame(dev, results)
     log(f"[kernels] times above measured on {label}")
@@ -1398,10 +1767,11 @@ def main(argv=None) -> int:
     log(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, k in cuda_lib.KERNELS.items():
+        check(name in results, f"kernel {name} was launched but not measured in phase 2")
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": launches[name],
+            "replaces": k.replaces, "launches": launches.get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
         })

@@ -207,10 +207,24 @@ def test_render_compare_rejects_rolling_shutter(tmp_path):
     dict(interp="bicubic"), dict(projection="equirect"), dict(crop_rect="64:48"),
     dict(prefilter="auto"), dict(debug=True),
 ])
-def test_render_compare_refuses_unported_options(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcompare.render_compare("synthetic://shaky?w=96&h=64&n=2", None, ["none", "vidstab"],
-                                trender.RenderOptions(**OPTS, **kw), device="cpu")
+def test_render_compare_refuses_unported_options(monkeypatch, tmp_path, kw):
+    """``--crop W:H`` and ``--debug`` still raise naming their ROADMAP
+    item; ``--interp``, ``--projection`` and ``--prefilter`` (K1's modes)
+    now render the grid as the JAX package does, from the JAX analysers'
+    trajectories (at this size no tile of the prefilter's level map
+    engages, as the JAX CPU fallback's global level does not)."""
+    src = "synthetic://shaky?w=96&h=64&n=2"
+    if set(kw) & {"crop_rect", "debug"}:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tcompare.render_compare(src, None, ["none", "vidstab"],
+                                    trender.RenderOptions(**OPTS, **kw), device="cpu")
+        return
+    (jmeta, jframes), (tmeta, tframes), _ = render_both(
+        monkeypatch, tmp_path, src, ["none", "vidstab"], cell_labels=False, **kw)
+    assert (tmeta.width, tmeta.height, len(tframes)) == (jmeta.width, jmeta.height, 2)
+    for tf, jf in zip(tframes, jframes):
+        for tp, jp in zip(tf, jf):
+            assert_u8_close(tp, jp)
 
 
 def test_cli_compare_reaches_render_compare(monkeypatch):
@@ -230,7 +244,7 @@ def test_cli_compare_reaches_render_compare(monkeypatch):
 def test_cli_reports_an_unported_compare_mode(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     rc = tcli.main(["render", "synthetic://shaky?w=96&h=64&n=2", "grid.y4m",
-                    "--compare", "none,horizon", "--interp", "bicubic"])
+                    "--compare", "none,horizon", "--crop", "64:48"])
     assert rc == 1
     assert "ROADMAP" in capsys.readouterr().err
 

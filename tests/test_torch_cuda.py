@@ -412,3 +412,101 @@ def test_compare_grid_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     for a, b in zip(*frames):
         for pa, pb in zip(a, b):
             assert_u8_close(torch.from_numpy(np.array(pa)), torch.from_numpy(np.array(pb)))
+
+
+def mode_geometry(kind):
+    """(out camera, in camera, interp, levels) of a small warp in K1's
+    modes: 4 taps, an equirect output (ray grid), ``--scale 0.3`` of a
+    cropped fit (mip levels 0 and 1), or all three at once (a fisheye
+    output that minifies everywhere, with lanczos)."""
+    from video_annotator_tpu_torch.camera import CameraModel, camera_from_dfov
+    from video_annotator_tpu_torch.ops.mip import tile_levels
+
+    in_cam = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (320, 240))
+    if kind in ("bicubic", "lanczos"):
+        return get_output_camera(in_cam, zoom=1 / 1.2), in_cam, kind, None
+    if kind == "rays":
+        return camera_from_dfov(145.8, (160, 120), CameraModel.EQUIRECT), in_cam, "bilinear", None
+    out_cam = (get_output_camera(in_cam, scale=0.3, crop_borders=True) if kind == "mip"
+               else camera_from_dfov(100.0, (80, 60), CameraModel.FISHEYE))
+    return out_cam, in_cam, "bilinear" if kind == "mip" else "lanczos", kind
+
+
+@pytest.mark.parametrize("rs", [False, True])
+@pytest.mark.parametrize("entry", ["batch", "one_frame", "float"])
+@pytest.mark.parametrize("plane", ["luma", "chroma"])
+@pytest.mark.parametrize("kind", ["bicubic", "lanczos", "rays", "mip", "all"])
+def test_warp_modes_match_plain(cuda, kind, plane, entry, rs):
+    """Each of K1's modes (and all three at once) through each entry, with
+    one rotation per frame and one per tile row, against its plain version
+    on the same card inputs; each launch counted once, under its variant's
+    kernel object alone. Held to one count in uint8 (measured: 0 differing values at
+    4K, ``chip_smoke.py``) and to 1e-3 in float."""
+    from video_annotator_tpu_torch.ops.mip import tile_levels
+
+    out_cam, in_cam, interp, mip = mode_geometry(kind)
+    oh, ow = out_cam.height - out_cam.height % 2, out_cam.width - out_cam.width % 2
+    border = 0.0
+    if plane == "chroma":
+        out_cam, in_cam = scaled_camera(out_cam, 0.5), scaled_camera(in_cam, 0.5)
+        oh, ow, border = oh // 2, ow // 2, 128.0
+    levels = tile_levels(out_cam, in_cam, 8.0, (oh, ow), interp, device=cuda) if mip else None
+    if mip:
+        assert levels.max_level >= 1
+    planes = 1 if plane == "luma" else 2
+    t = 3 if entry == "batch" else 1
+    g = torch.Generator().manual_seed(7)
+    src = torch.randint(0, 256, (t, planes, in_cam.height, in_cam.width), generator=g,
+                        dtype=torch.uint8).to(cuda)
+    ny = -(-oh // 8)
+    rot = so3.exp(torch.randn((t, ny if rs else 1, 3), generator=g) * 0.02)
+    rot = (rot if rs else rot[:, 0]).to(cuda)
+    kw = dict(interp=interp, levels=levels)
+    whole = {"batch": warp_kernel.BATCH_KERNELS[rs],
+             "one_frame": warp_kernel.ONE_FRAME_KERNELS[rs],
+             "float": (warp_kernel.FRAME_F32_KERNELS[rs],
+                       warp_kernel.PLANES_F32_KERNELS[rs])}[entry][planes - 1]
+    obj = warp_kernel.mode_kernel(whole, warp_kernel.variant(out_cam, interp, levels))
+    before = {n: k.launches for n, k in warp_kernel.cuda_lib.KERNELS.items()}
+    if entry == "float":
+        src, rot = src[0].to(torch.float32), rot[0]
+        got = (warp_kernel.warp_frame_f32(src[0], rot, out_cam, in_cam, (oh, ow), border,
+                                          **kw)[None]
+               if planes == 1 else
+               warp_kernel.warp_planes_f32(src, rot, out_cam, in_cam, (oh, ow), border, **kw))
+        want = warp_kernel.warp_planes_f32_plain(src, rot, out_cam, in_cam, (oh, ow), border,
+                                                 interp, levels)
+        assert float((got - want).abs().max()) <= 1e-3
+    else:
+        kernels = warp_kernel.BATCH_KERNELS if entry == "batch" else warp_kernel.ONE_FRAME_KERNELS
+        got = warp_kernel.warp_planes_u8(src, rot, out_cam, in_cam, (oh, ow), border,
+                                         kernels=kernels, **kw)
+        want = warp_kernel.warp_planes_u8_plain(src, rot, out_cam, in_cam, (oh, ow), border,
+                                                interp, levels)
+        assert_u8_close(got, want)
+    moved = {n for n, k in warp_kernel.cuda_lib.KERNELS.items() if k.launches != before[n]}
+    # A uint8 mip launch stages its levels through K3 first.
+    assert moved == {obj.name} | ({"stage"} if mip and entry != "float" else set())
+    assert obj.launches == before[obj.name] + 1
+
+
+def test_whole_frame_launches_stay_bit_exact(cuda):
+    """The bilinear, rectilinear-output, no-mip launches of every entry
+    (``csrc/warp.cu``, untouched by the modes) equal their plain versions
+    bit for bit."""
+    in_cam = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (320, 240))
+    out_cam = get_output_camera(in_cam, zoom=1 / 1.2)
+    oh, ow = out_cam.height - out_cam.height % 2, out_cam.width - out_cam.width % 2
+    g = torch.Generator().manual_seed(8)
+    ys = torch.randint(0, 256, (3, 1, 240, 320), generator=g, dtype=torch.uint8).to(cuda)
+    rot = so3.exp(torch.randn((3, 3), generator=g) * 0.02).to(cuda)
+    for kernels in (warp_kernel.BATCH_KERNELS, warp_kernel.ONE_FRAME_KERNELS):
+        before = kernels[False][0].launches
+        got = warp_kernel.warp_planes_u8(ys, rot, out_cam, in_cam, (oh, ow), kernels=kernels)
+        assert kernels[False][0].launches == before + 1
+        assert torch.equal(got, warp_kernel.warp_planes_u8_plain(ys, rot, out_cam, in_cam,
+                                                                 (oh, ow)))
+    plane = ys[0].to(torch.float32)
+    got = warp_kernel.warp_planes_f32(plane, rot[0], out_cam, in_cam, (oh, ow))
+    assert torch.equal(got, warp_kernel.warp_planes_f32_plain(plane, rot[0], out_cam, in_cam,
+                                                              (oh, ow)))

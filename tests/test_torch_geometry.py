@@ -132,9 +132,17 @@ def test_fisheye_project_unproject_match_jax(dist):
 
 
 def test_unported_models_raise():
-    cam = tcamera.camera_from_dfov(120.0, (64, 48), tcamera.CameraModel.EQUIRECT)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cam.unproject(torch.zeros(1, 2))
+    """The panoramic models raised until this slice ported them: an
+    equirect camera now unprojects and projects as the JAX one does (the
+    other models: ``tests/test_torch_projection.py``)."""
+    jcam = jcamera.camera_from_dfov(120.0, (64, 48), jcamera.CameraModel.EQUIRECT)
+    cam = to_port(jcam)
+    assert cam == tcamera.camera_from_dfov(120.0, (64, 48), tcamera.CameraModel.EQUIRECT)
+    px = np.stack(np.meshgrid(np.arange(64.0), np.arange(48.0)), axis=-1).astype(np.float32)
+    rays = cam.unproject(torch.from_numpy(px))
+    np.testing.assert_allclose(rays.numpy(), np.asarray(jcam.unproject(jnp.asarray(px))),
+                               atol=ROT_ATOL)
+    np.testing.assert_allclose(cam.project(rays).numpy(), px, atol=PX_ATOL * 10)
 
 
 @pytest.mark.parametrize("crop_borders", [False, True])

@@ -130,8 +130,14 @@ def test_warp_similarity_matches_jax(out_size):
 
 
 def test_warp_similarity_refuses_other_resamplers():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        affine.warp_similarity(torch.zeros((8, 8)), torch.zeros(4), interp="bicubic")
+    """Refused until the 4-tap resamplers were ported: bicubic now
+    resamples as the JAX function does."""
+    img = texture(64, 96, 7)
+    params = np.array([-1.25, 2.5, -0.02, 0.015], np.float32)
+    want = jaffine.warp_similarity(jnp.asarray(img), jnp.asarray(params), interp="bicubic")
+    got = affine.warp_similarity(torch.from_numpy(img), torch.from_numpy(params),
+                                 interp="bicubic")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=WARP_ATOL)
 
 
 @pytest.mark.parametrize("shift", [(5, -3), (0, 0), (-11, 7)])
@@ -266,8 +272,17 @@ def test_similarity_warper_matches_the_plain_similarity_warp(out_size):
 
 
 def test_similarity_warper_refuses_other_resamplers():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        similarity.SimilarityWarper(96, 64, interp="lanczos")
+    """Refused until K1's 4-tap mode was ported: lanczos now warps as JAX
+    ``warp_frame_similarity`` does (the mode's plain version here)."""
+    planes = [texture(64, 96, 8), texture(32, 48, 9), texture(32, 48, 10)]
+    params = np.array([2.0, -1.5, 0.01, -0.01], np.float32)
+    warper = similarity.SimilarityWarper(96, 64, interp="lanczos")
+    got = warper.warp_yuv(*(torch.from_numpy(p).to(torch.uint8) for p in planes),
+                          torch.from_numpy(similarity.SimilarityWarper.matrices(params[None])[0]))
+    want = jsimilarity.warp_frame_similarity(*(jnp.asarray(p) for p in planes),
+                                             jnp.asarray(params), interp="lanczos")
+    for g, w in zip(got, want):
+        assert_u8_close(g.numpy(), np.clip(np.round(np.asarray(w)), 0, 255))
 
 
 CLIP = "synthetic://shaky?w=640&h=480&n=8&seed=3"
@@ -448,8 +463,22 @@ def test_encode_2d_refuses_upsample_for_a_translation(tmp_path):
 
 
 @pytest.mark.parametrize("flt", ["vidstab", "deshake"])
-def test_2d_families_refuse_unported_options(flt):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender.render("synthetic://shaky?w=96&h=64&n=2", None,
-                       trender.RenderOptions(filter=flt, stabilise="smooth",
-                                             interp="bicubic"), device="cpu")
+def test_2d_families_refuse_unported_options(tmp_path, flt):
+    """``--interp bicubic``, refused until K1's 4-tap mode was ported, now
+    encodes as the JAX package does from the JAX analyser's trajectory
+    (deshake's warp ignores it in both packages)."""
+    from video_annotator_tpu.pipeline.render import render as jrender
+
+    src = "synthetic://shaky?w=96&h=64&n=3"
+    kw = dict(filter=flt, stabilise="smooth", interp="bicubic")
+    jdest, tdest = tmp_path / "jax.y4m", tmp_path / "torch.y4m"
+    jrender(src, str(jdest), JRenderOptions(analyse_only=True, **kw))
+    os.link(str(jdest) + ".traj.npz", str(tdest) + ".traj.npz")
+    jrender(src, str(jdest), JRenderOptions(encode_only=True, **kw))
+    trender.render(src, str(tdest), trender.RenderOptions(encode_only=True, **kw),
+                   device="cpu")
+    (jmeta, jframes), (tmeta, tframes) = read_frames(jdest), read_frames(tdest)
+    assert (tmeta.width, tmeta.height, len(tframes)) == (jmeta.width, jmeta.height, 3)
+    for tf, jf in zip(tframes, jframes):
+        for tp, jp in zip(tf, jf):
+            assert_u8_close(tp, jp)

@@ -138,16 +138,39 @@ def test_encode_only_without_trajectory_errors(tmp_path):
                        device="cpu")
 
 
+# Refused until K1's 4-tap, ray-grid and mip modes were ported; they now
+# render, and match the JAX render.
+NOW_PORTED = {("interp", "bicubic"), ("interp", "lanczos"), ("projection", "equirect"),
+              ("prefilter", "auto")}
+
+
 @pytest.mark.parametrize("field,value", [
     ("debug", True), ("crop_rect", "64:48"), ("device_sink", True),
     ("interp", "bicubic"), ("projection", "equirect"), ("interp", "lanczos"),
     ("preview", "p.png"), ("display", True), ("prefilter", "auto"),
 ])
-def test_unported_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender.render("synthetic://shaky?w=64&h=48&n=2", None,
-                       trender.RenderOptions(stabilise="smooth", **{field: value}),
-                       device="cpu")
+def test_unported_options_raise(tmp_path, field, value):
+    """Options outside the ported slices raise naming their ROADMAP item;
+    those of :data:`NOW_PORTED` render as the JAX package does (a rolled
+    attitude instead of stabilisation, so no analyser runs; at this size
+    no tile of the prefilter's level map engages, as the JAX CPU
+    fallback's global level does not)."""
+    src = "synthetic://shaky?w=64&h=48&n=2"
+    if (field, value) not in NOW_PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            trender.render(src, None,
+                           trender.RenderOptions(stabilise="smooth", **{field: value}),
+                           device="cpu")
+        return
+    kw = {"roll": 3.0, "pitch": -2.0, field: value}
+    jdest, tdest = tmp_path / "jax.y4m", tmp_path / "torch.y4m"
+    jrender(src, str(jdest), JRenderOptions(**kw))
+    trender.render(src, str(tdest), trender.RenderOptions(**kw), device="cpu")
+    (jmeta, jframes), (tmeta, tframes) = read_frames(jdest), read_frames(tdest)
+    assert (tmeta.width, tmeta.height, len(tframes)) == (jmeta.width, jmeta.height, 2)
+    for tf, jf in zip(tframes, jframes):
+        for tp, jp in zip(tf, jf):
+            assert_u8_close(tp, jp)
 
 
 def _render_actions(parser):

@@ -1,15 +1,17 @@
-"""Camera models: rectilinear pinhole and equidistant fisheye.
+"""Camera models: rectilinear pinhole, equidistant fisheye and the v360
+panoramic output family.
 
 Port of ``video_annotator_tpu/camera.py``. A :class:`Camera` is a frozen
 dataclass of plain Python numbers (intrinsics rounded to float32, as the
 JAX package stores them), so it can be hashed, compared, and handed to a
-CUDA kernel as scalar arguments. Projection runs on float32 tensors on
-any device.
+CUDA kernel as scalar arguments. Projection runs on float32 or float64
+tensors on any device, in the dtype of its input.
 
-Only the RECTILINEAR and FISHEYE models project and unproject here; the
-panoramic output models keep their enum values (so option parsing and
-trajectory files stay compatible) but raise ``NotImplementedError`` until
-the projection-modes item of ROADMAP.md lands.
+The rectilinear and fisheye models unproject to z = 1 rays. The lon/lat
+models (equirect, mercator, sinusoidal, cylindrical, hammer, pannini) and
+the radial full-sphere ones (stereographic, ball) unproject to direction
+vectors; a pixel outside a model's valid region unprojects to
+(0, 0, -1), which the warp's behind-camera mask renders as border.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +42,9 @@ _LONLAT_MODELS = frozenset({
     CameraModel.EQUIRECT, CameraModel.MERCATOR, CameraModel.SINUSOIDAL,
     CameraModel.CYLINDRICAL, CameraModel.HAMMER, CameraModel.PANNINI,
 })
-_PORTED_MODELS = frozenset({CameraModel.RECTILINEAR, CameraModel.FISHEYE})
+# Pannini distance parameter: d = 1, the chart r = 2 tan(theta / 2) on the
+# equator.
+_PANNINI_D = 1.0
 
 
 class CameraPreset(enum.Enum):
@@ -63,13 +67,6 @@ _GOPRO_FOV_V_169W = int(69.5)
 
 def _f32(x) -> float:
     return float(np.float32(x))
-
-
-def _not_ported(model: CameraModel):
-    return NotImplementedError(
-        f"camera model {model.value!r} is not ported to the torch package yet "
-        "(ROADMAP.md, modules still to port: interp/projection/prefilter modes)"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,9 +94,23 @@ class Camera:
 
     def project(self, rays: torch.Tensor) -> torch.Tensor:
         """(..., 3) camera-frame rays -> (..., 2) pixel coordinates."""
-        if self.model not in _PORTED_MODELS:
-            raise _not_ported(self.model)
         x, y, z = rays[..., 0], rays[..., 1], rays[..., 2]
+        if self.model in _LONLAT_MODELS:
+            # lon/lat with lat positive downward (image y grows down)
+            lon = torch.atan2(x, z)
+            lat = torch.atan2(y, torch.sqrt(x * x + z * z))
+            mx, my = _lonlat_chart(self.model, lon, lat)
+            return torch.stack([self.fx * mx + self.cx, self.fy * my + self.cy], dim=-1)
+        if self.model in (CameraModel.STEREOGRAPHIC, CameraModel.BALL):
+            rho = torch.sqrt(x * x + y * y)
+            theta = torch.atan2(rho, z)
+            if self.model == CameraModel.STEREOGRAPHIC:
+                r = 2.0 * torch.tan(torch.clamp(theta, max=3.1) / 2.0)
+            else:
+                r = torch.sin(theta / 2.0)
+            scale = torch.where(rho > 1e-8, r / torch.clamp(rho, min=1e-8), 0.0)
+            return torch.stack([self.fx * x * scale + self.cx,
+                                self.fy * y * scale + self.cy], dim=-1)
         inv_z = 1.0 / z
         a = x * inv_z
         b = y * inv_z
@@ -113,17 +124,39 @@ class Camera:
         v = self.fy * b * scale + self.cy
         return torch.stack([u, v], dim=-1)
 
-    def unproject(self, pixels: torch.Tensor) -> torch.Tensor:
-        """(..., 2) pixels -> (..., 3) rays with z == 1."""
-        if self.model not in _PORTED_MODELS:
-            raise _not_ported(self.model)
+    def unproject(self, pixels: torch.Tensor,
+                  max_theta: Optional[float] = None) -> torch.Tensor:
+        """(..., 2) pixels -> (..., 3) rays: z == 1 for the rectilinear and
+        fisheye models, unit directions for the panoramic ones.
+        ``max_theta`` clips a fisheye's angle from the axis before its
+        ``tan`` (the JAX planner's ``unproject_np`` rule)."""
         xd = (pixels[..., 0] - self.cx) / self.fx
         yd = (pixels[..., 1] - self.cy) / self.fy
+        if self.model in _LONLAT_MODELS:
+            lon, lat, bad = _lonlat_inverse(self.model, xd, yd)
+            cl = torch.cos(lat)
+            dirs = torch.stack([cl * torch.sin(lon), torch.sin(lat), cl * torch.cos(lon)],
+                               dim=-1)
+            return _backward_where(bad, dirs)
+        if self.model in (CameraModel.STEREOGRAPHIC, CameraModel.BALL):
+            rd = torch.sqrt(xd * xd + yd * yd)
+            if self.model == CameraModel.STEREOGRAPHIC:
+                theta = 2.0 * torch.atan(rd / 2.0)
+                bad = torch.zeros_like(xd, dtype=torch.bool)
+            else:  # r = sin(theta / 2) covers the sphere at r == 1
+                theta = 2.0 * torch.asin(torch.clamp(rd, max=1.0))
+                bad = rd > 1.0
+            scale = torch.where(rd > 1e-8, torch.sin(theta) / torch.clamp(rd, min=1e-8), 0.0)
+            dirs = torch.stack([xd * scale, yd * scale, torch.cos(theta)], dim=-1)
+            return _backward_where(bad, dirs)
         one = torch.ones_like(xd)
         if self.model == CameraModel.RECTILINEAR:
             return torch.stack([xd, yd, one], dim=-1)
         theta_d = torch.sqrt(xd * xd + yd * yd)
-        r = torch.tan(_undistort_theta(theta_d, self.dist))
+        theta = _undistort_theta(theta_d, self.dist)
+        if max_theta is not None:
+            theta = torch.clamp(theta, 0.0, max_theta)
+        r = torch.tan(theta)
         scale = torch.where(theta_d > 1e-8,
                             r / torch.clamp(theta_d, min=1e-8), 1.0)
         return torch.stack([xd * scale, yd * scale, one], dim=-1)
@@ -131,6 +164,63 @@ class Camera:
     def unproject_unit(self, pixels: torch.Tensor) -> torch.Tensor:
         rays = self.unproject(pixels)
         return rays / torch.linalg.vector_norm(rays, dim=-1, keepdim=True)
+
+
+def _lonlat_chart(model: CameraModel, lon, lat):
+    """(mx, my) chart coordinates of a lon/lat model."""
+    if model == CameraModel.EQUIRECT:
+        return lon, lat
+    if model == CameraModel.MERCATOR:
+        # Gudermannian; poles clamped so projected points stay finite
+        return lon, torch.asinh(torch.tan(torch.clamp(lat, -1.55, 1.55)))
+    if model == CameraModel.SINUSOIDAL:
+        return lon * torch.cos(lat), lat
+    if model == CameraModel.CYLINDRICAL:
+        return lon, torch.tan(torch.clamp(lat, -1.55, 1.55))
+    if model == CameraModel.PANNINI:
+        d = _PANNINI_D
+        s = (d + 1.0) / (d + torch.clamp(torch.cos(lon), min=-0.999))
+        return s * torch.sin(lon), s * torch.tan(torch.clamp(lat, -1.55, 1.55))
+    # HAMMER
+    d = torch.sqrt(1.0 + torch.cos(lat) * torch.cos(lon / 2.0))
+    mx = 2.0 * math.sqrt(2.0) * torch.cos(lat) * torch.sin(lon / 2.0) / d
+    return mx, math.sqrt(2.0) * torch.sin(lat) / d
+
+
+def _lonlat_inverse(model: CameraModel, xd, yd):
+    """(lon, lat, outside the model's valid region) of chart coordinates."""
+    none = torch.zeros_like(xd, dtype=torch.bool)
+    if model == CameraModel.EQUIRECT:
+        return xd, yd, none
+    if model == CameraModel.MERCATOR:
+        return xd, torch.atan(torch.sinh(yd)), none
+    if model == CameraModel.SINUSOIDAL:
+        lat = torch.clamp(yd, -math.pi / 2, math.pi / 2)
+        lon = xd / torch.clamp(torch.cos(lat), min=1e-8)
+        return lon, lat, (torch.abs(yd) > math.pi / 2) | (torch.abs(lon) > math.pi)
+    if model == CameraModel.CYLINDRICAL:
+        return xd, torch.atan(yd), none
+    if model == CameraModel.PANNINI:
+        # x = (d + 1) sin(lon) / (d + cos(lon)) is quadratic in cos(lon)
+        d = _PANNINI_D
+        k = xd * xd / ((d + 1.0) * (d + 1.0))
+        disc = torch.sqrt(torch.clamp(k * k * d * d - (k + 1.0) * (k * d * d - 1.0),
+                                      min=0.0))
+        cl = (-k * d + disc) / (k + 1.0)
+        sl = xd * (d + cl) / (d + 1.0)
+        return torch.atan2(sl, cl), torch.atan(yd * (d + cl) / (d + 1.0)), none
+    # HAMMER: inverse Hammer-Aitoff, outside the full-sphere ellipse is bad
+    z2 = 1.0 - 0.0625 * xd * xd - 0.25 * yd * yd
+    zz = torch.sqrt(torch.clamp(z2, min=0.5))
+    lon = 2.0 * torch.atan2(zz * xd / 2.0, 2.0 * z2 - 1.0)
+    lat = torch.asin(torch.clamp(zz * yd, -1.0, 1.0))
+    return lon, lat, z2 < 0.5
+
+
+def _backward_where(bad, dirs):
+    """``dirs`` with the pixels ``bad`` pointing backward, (0, 0, -1)."""
+    backward = torch.tensor([0.0, 0.0, -1.0], dtype=dirs.dtype, device=dirs.device)
+    return torch.where(bad[..., None], backward, dirs)
 
 
 def _distort_theta(theta, dist):

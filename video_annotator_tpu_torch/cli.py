@@ -4,7 +4,8 @@ The ``render`` subcommand has the JAX package's full option set (the
 frozen v1.0 surface: same option strings, defaults and choices) and runs
 the ported paths on a CUDA device: the rotation family (two-phase or
 ``--streaming``), ``--filter vidstab`` and ``--filter deshake``, and the
-``--compare`` grid. Options outside the ported slices stop with
+``--compare`` grid, each with ``--interp``, and the rotation family with
+``--projection`` and ``--prefilter``. Options outside the ported slices stop with
 ``NotImplementedError`` naming their ROADMAP item. The other subcommands
 of the JAX CLI (join, compare, workflow, probe, calibrate) exist and exit
 non-zero as not yet ported.
@@ -105,12 +106,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Warp resampler: bilinear (the native engine's "
                         "INTER_LINEAR), bicubic (the reference's vidstab "
                         "interpol=bicubic), or lanczos (v360's "
-                        "interp=lanczos, 4x4 windowed sinc); bilinear "
-                        "only in this package so far")
+                        "interp=lanczos, 4x4 windowed sinc), the last "
+                        "two through the warp kernel's 4-tap mode")
     r.add_argument("--prefilter", default="off", choices=["off", "auto"],
-                   help="Mip-prefilter minifying inputs before the warp "
-                        "(antialias + faster kernel; off = exact bilinear "
-                        "like the reference)")
+                   help="Mip-prefilter minifying inputs before the warp: "
+                        "each 8x128 output tile samples the deepest box-"
+                        "downsampled level that cannot blur it (antialias; "
+                        "off = exact sampling like the reference)")
     # Bare --crop: auto-crop borders to the fully-covered region (the
     # native engine's crop_borders). --crop W:H[:X:Y]: output crop
     # rectangle in ffmpeg crop-filter syntax, X/Y defaulting to centered
@@ -150,17 +152,19 @@ def build_parser() -> argparse.ArgumentParser:
             "sinusoidal", "sinusoid", "cylindrical", "pannini",
         ],
         help="Output lens projection — the v360 single-image family "
-        "(the reference forwards this option to v360, src/cli.ts:117-121)",
+        "(the reference forwards this option to v360, src/cli.ts:117-121); "
+        "any but rect runs the warp kernel on a precomputed ray grid",
     )
     r.add_argument("--preset", default=None,
                    help="GoPro camera preset name (e.g. gopro_h4b_wide43_measured)")
     r.add_argument("--gyro", action="store_true",
                    help="Use the GPMF gyro track for motion analysis")
     r.add_argument("--max-correction", type=float, default=8.0,
-                   help="Accepted for compatibility with the JAX package's "
-                        "CLI; bounds nothing here (the CUDA warp reads the "
-                        "whole source plane, so there is no per-tile window "
-                        "to size)")
+                   help="Correction angle in degrees that --prefilter auto "
+                        "probes when it sizes its per-tile levels (a two-phase "
+                        "render also probes the clip's largest correction); "
+                        "the CUDA warp reads the whole source plane, so there "
+                        "is no per-tile window to size")
     r.add_argument("--streaming", action="store_true",
                    help="Single-pass render: decode once, smooth through a "
                         "bounded lookahead window (identical output to the "

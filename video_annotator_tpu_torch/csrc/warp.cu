@@ -36,6 +36,11 @@
 // identity pinhole cameras (f = 1, c = 0), where the "ray" is the pixel
 // coordinate and vz is exactly 1.
 //
+// K1's 4-tap, ray-grid and per-tile mip modes are csrc/warp_modes.cu; the
+// helpers the two sources share (the camera parameters, the per-tile-row
+// rotation, the unfused arithmetic, the input projection) are
+// csrc/warp_common.cuh.
+//
 // Bound on Hopper: the uint8 mode by the dependent 4-tap gather of source
 // bytes and its operations (per pixel about 28 for the map between
 // rectilinear cameras and 20 more for a fisheye input, 20 per plane for
@@ -48,43 +53,9 @@
 // plane of its frame. No VMEM windows, origin passes or packed layouts:
 // those served the TPU's lane gather.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp_common.cuh"
 
 namespace {
-
-struct WarpParams {
-  float inv_ofx, inv_ofy, ocx, ocy;  // output (rectilinear) camera, 1 / focal
-  float ifx, ify, icx, icy;  // input camera
-  float k1, k2, k3, k4;      // input fisheye distortion
-  float border;
-  int in_w, in_h, out_w, out_h;
-  int fisheye;
-};
-
-constexpr int TILE_ROWS = 8;  // output rows per 3x3 with ny > 0, = blockDim.y
-
-// The 3x3 of this block's rows of frame t: rot is (T, 3, 3) without RS and
-// (T, ny, 3, 3) with it, a block being one tile row and its index clipped
-// to the stack. A run-time test of ny here instead of the template
-// argument cost the whole-frame launches 2 to 7% on an H100, and a 64-bit
-// t * 9 another 2% on the 4K luma batch (tools/time_warp_builds.py).
-template <bool RS>
-__device__ __forceinline__ const float* row_rotation(int ny, const float* __restrict__ rot,
-                                                     int t) {
-  if (!RS) return rot + t * 9;
-  return rot + ((size_t)t * ny + min((int)blockIdx.y, ny - 1)) * 9;
-}
-
-// Products and sums that the compiler may not contract into fused
-// multiply-adds. The plain version computes the map and the taps as
-// separate float32 tensor operations, each rounded; with the same roundings
-// here the source coordinates agree bit for bit on the card (both sides use
-// CUDA's division, sqrtf and atanf). A contracted map differs by about
-// 1e-3 px at 4K, which the image gradient turns into a tenth of a count:
-// too coarse a tolerance to hold a float kernel to.
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 
 // Source coordinates of output pixel (x, y) under the 3x3 `r`. False when
 // every tap falls outside the image or the ray points behind the camera.
@@ -96,22 +67,7 @@ __device__ __forceinline__ bool source_coords(const WarpParams& p,
   const float vx = add(add(mul(r[0], rx), mul(r[1], ry)), r[2]);
   const float vy = add(add(mul(r[3], rx), mul(r[4], ry)), r[5]);
   const float vz = add(add(mul(r[6], rx), mul(r[7], ry)), r[8]);
-  const float inv_z = 1.0f / vz;
-  const float a = vx * inv_z;
-  const float b = vy * inv_z;
-  if (p.fisheye) {
-    const float rr = sqrtf(add(mul(a, a), mul(b, b)));
-    const float th = atanf(rr);
-    const float t2 = th * th;
-    const float poly = add(p.k1, mul(t2, add(p.k2, mul(t2, add(p.k3, mul(t2, p.k4))))));
-    const float thd = mul(th, add(1.0f, mul(t2, poly)));
-    const float scale = rr > 1e-8f ? thd / fmaxf(rr, 1e-8f) : 1.0f;
-    *sx = add(mul(mul(p.ifx, a), scale), p.icx);
-    *sy = add(mul(mul(p.ify, b), scale), p.icy);
-  } else {
-    *sx = add(mul(p.ifx, a), p.icx);
-    *sy = add(mul(p.ify, b), p.icy);
-  }
+  input_coords(p, vx, vy, vz, sx, sy);
   return *sx > -1.0f && *sx < (float)p.in_w && *sy > -1.0f &&
          *sy < (float)p.in_h && vz > 1e-6f;
 }
@@ -150,10 +106,6 @@ struct Taps {
     return add(add(mul(top, 1.0f - fy), mul(bot, fy)), border);
   }
 };
-
-__device__ __forceinline__ uint8_t to_u8(float v) {
-  return (uint8_t)(int)fminf(fmaxf(rintf(v), 0.0f), 255.0f);
-}
 
 // (T, NPLANES, in_h, in_w) uint8 -> (T, NPLANES, out_h, out_w) uint8, one
 // 3x3 per frame or per tile row of a frame.

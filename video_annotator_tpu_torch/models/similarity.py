@@ -178,21 +178,19 @@ class SimilarityWarper:
     applies (not ``scaled_camera``'s pixel-centre variant).
 
     ``out_size`` (h, w) is the ``--upsample`` fold: a larger canvas whose
-    sampling transforms already carry the shrunken log-scale. The kernel
-    reads the whole source plane, so nothing is planned from the
-    corrections (an empty stack is fine)."""
+    sampling transforms already carry the shrunken log-scale. ``interp``
+    ``bicubic`` or ``lanczos`` runs K1's 4-tap mode. The kernel reads the
+    whole source plane, so nothing is planned from the corrections (an
+    empty stack is fine)."""
 
     def __init__(self, width: int, height: int, interp: str = "bilinear",
                  out_size=None):
-        if interp != "bilinear":
-            raise NotImplementedError(
-                f"interp={interp!r} is not ported to the torch package yet "
-                "(ROADMAP.md, modules still to port: interp/projection/prefilter modes)")
         if out_size is not None:
             self.out_h, self.out_w = out_size
         else:
             self.out_w = width - width % 2
             self.out_h = height - height % 2
+        self.interp = interp
         self.cam = Camera.make(1.0, 1.0, 0.0, 0.0, width, height,
                                CameraModel.RECTILINEAR)
         self.cam_c = Camera.make(0.5, 0.5, 0.0, 0.0, width // 2, height // 2,
@@ -210,7 +208,7 @@ class SimilarityWarper:
         wy, wu, wv = warp_kernel.warp_yuv_batch(
             torch.stack(list(ys)), torch.stack(list(us)), torch.stack(list(vs)),
             mats, self.cam, self.cam, self.cam_c, self.cam_c,
-            (self.out_h, self.out_w))
+            (self.out_h, self.out_w), interp=self.interp)
         return list(zip(wy, wu, wv))
 
     def warp_yuv(self, y, u, v, mat: torch.Tensor):
@@ -218,4 +216,4 @@ class SimilarityWarper:
         per-cell path."""
         return warp_kernel.warp_yuv(y, u, v, mat, self.cam, self.cam,
                                     self.cam_c, self.cam_c,
-                                    (self.out_h, self.out_w))
+                                    (self.out_h, self.out_w), interp=self.interp)

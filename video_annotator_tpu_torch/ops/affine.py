@@ -5,7 +5,8 @@ vidstab-family stabiliser. A similarity is four parameters ``(dx, dy,
 angle, log_scale)``; estimation is a robust weighted least-squares fit
 over tracked point pairs (IRLS with a hard residual cutoff and a fixed
 iteration count), and :func:`warp_similarity` resamples through the
-similarity with the bilinear sampler of ``ops/warp_plain.py``. It is the
+similarity with a sampler of ``ops/warp_plain.py`` (bilinear, or the
+4-tap bicubic or lanczos: ``--interp``). It is the
 plain version of the similarity warp: on a card the family warps through
 kernel K1 over identity pinhole cameras instead
 (``models/similarity.py::SimilarityWarper``).
@@ -20,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from video_annotator_tpu_torch.ops.warp_plain import bilinear_sample
+from video_annotator_tpu_torch.ops.warp_plain import sample
 
 
 def fit_similarity(pts_prev: torch.Tensor, pts_curr: torch.Tensor,
@@ -117,11 +118,9 @@ def warp_similarity(image: torch.Tensor, params: torch.Tensor,
     ``params`` is the SAMPLING transform (output pixels to source pixels):
     to stabilise, callers pass the inverse of the estimated prev-to-curr
     motion (``models/similarity.py`` composes and inverts before calling).
-    Passing a forward motion warps the frame the wrong way."""
-    if interp != "bilinear":
-        raise NotImplementedError(
-            f"interp={interp!r} is not ported to the torch package yet "
-            "(ROADMAP.md, modules still to port: interp/projection/prefilter modes)")
+    Passing a forward motion warps the frame the wrong way.
+    ``interp='bicubic'`` is the reference's vidstabtransform call
+    (``interpol: "bicubic"``)."""
     h, w = image.shape if out_size is None else out_size
     dev = image.device
     dx, dy, ang, ls = params.to(device=dev, dtype=torch.float32).unbind(-1)
@@ -131,4 +130,4 @@ def warp_similarity(image: torch.Tensor, params: torch.Tensor,
     ca, sa = torch.cos(ang), torch.sin(ang)
     sx = s * (ca * xs - sa * ys) + dx
     sy = s * (sa * xs + ca * ys) + dy
-    return bilinear_sample(image, torch.stack([sx, sy], dim=-1))
+    return sample(image, torch.stack([sx, sy], dim=-1), interp)

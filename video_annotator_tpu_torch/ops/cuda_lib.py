@@ -1,10 +1,11 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Every kernel lives in ``video_annotator_tpu_torch/csrc/*.cu`` behind a
-plain C entry point. On first use the sources are compiled with ``nvcc``
-for ``sm_90a`` (Hopper) into one shared library under
+plain C entry point. On first use each source is compiled with ``nvcc``
+for ``sm_90a`` (Hopper), one ``nvcc`` per source, all started together,
+and the objects are linked into one shared library under
 ``video_annotator_tpu_torch/_build/`` (named by a hash of the sources and
-flags, so an edited source rebuilds) and loaded with ``ctypes``. Nothing
+flags, so an edited source rebuilds), loaded with ``ctypes``. Nothing
 here runs at import time: a host without ``nvcc`` or a card imports this
 module fine and only fails when a kernel is launched on a CUDA tensor.
 
@@ -31,10 +32,11 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Every kernel object, by name, in the order the modules define them.
+# Every kernel object, by name, in the order the modules define them (a
+# variant of K1's modes at its first launch, ``warp_kernel.mode_kernel``).
 KERNELS: "dict[str, CudaKernel]" = {}
 
 
@@ -74,14 +76,29 @@ def build() -> BuildResult:
         return BuildResult(target, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objects, procs = [], []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+        objects.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(logs)
+    failed = [p.args[-1] for p in procs if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["link"]
+    for obj in objects:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n{log}")
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
     os.replace(tmp, target)
     return BuildResult(target, seconds, log)
 
@@ -119,6 +136,7 @@ class CudaKernel:
         return fn
 
     def launch(self, *args) -> None:
+        """Launch on the current stream."""
         stream = torch.cuda.current_stream().cuda_stream
         err = self._fn(*args, stream)
         self.launches += 1

@@ -26,6 +26,24 @@ is gathered from the luma one before the launch
 (:func:`chroma_row_rotations`). These launches are counted under kernel
 objects of their own (``*_rs``).
 
+And every entry takes K1's three other modes (``csrc/warp_modes.cu``),
+alone or together, with or without per-tile-row rotations:
+
+- ``interp="bicubic"|"lanczos"``: 4x4 taps (``plan.taps == 4``);
+- an output camera that is not rectilinear: the ray grid, (3, H, W)
+  output rays computed once per camera, size and device
+  (:func:`ray_grid_planar`);
+- ``levels``, an :class:`~video_annotator_tpu_torch.ops.mip.TileLevels`
+  whose largest level is above 0: the per-tile mip prefilter, the levels
+  of the source built per call (``box_downsample``, then K3 in the uint8
+  modes).
+
+A launch in these modes counts once, under the kernel object of its
+variant (:func:`mode_kernel`): the entry's object name, then ``_bicubic``
+or ``_lanczos``, ``_rays``, ``_mip`` for the modes it runs, then ``_rs``
+(``warp_luma_bicubic_rays_mip_rs``). The bilinear, rectilinear, no-mip
+launches keep their kernels and objects.
+
 The float entries sample the float source as it is, like the XLA oracle;
 the TPU kernel rounded it to bytes while packing (``_pack_input``,
 :1737). On integer-valued planes, which is what the callers pass, the
@@ -44,23 +62,39 @@ the kernel or raises. Every kernel object counts its own launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from video_annotator_tpu_torch.camera import Camera, CameraModel
 from video_annotator_tpu_torch.ops import cuda_lib
+from video_annotator_tpu_torch.ops.mip import (
+    MIP_LEVELS,
+    TileLevels,
+    float_levels,
+    sample_levels,
+)
+from video_annotator_tpu_torch.ops.stage import stage_u8
 from video_annotator_tpu_torch.ops.warp_plain import (
-    bilinear_sample,
+    INTERPS,
     compute_warp_map,
     num_tile_rows,
+    ray_grid,
+    sample,
 )
 
 _SOURCE = "video_annotator_tpu_torch/csrc/warp.cu"
+_MODES_SOURCE = "video_annotator_tpu_torch/csrc/warp_modes.cu"
 _PALLAS = "video_annotator_tpu/ops/warp_pallas.py"
 _CAMERA_ARGTYPES = [ctypes.c_float] * 12 + [ctypes.c_int, ctypes.c_float]
 _U8_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + _CAMERA_ARGTYPES
 _F32_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + _CAMERA_ARGTYPES
+_LEVEL_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3
+_MODES_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                   + _CAMERA_ARGTYPES
+                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                   + _LEVEL_ARGTYPES * MIP_LEVELS)
 
 
 def _kernel(name: str, symbol: str, argtypes, line: int) -> cuda_lib.CudaKernel:
@@ -109,11 +143,9 @@ def chroma_row_rotations(rot_y: torch.Tensor, nyc: int) -> torch.Tensor:
 
 
 def _check_cameras(out_camera: Camera, in_camera: Camera) -> None:
-    if out_camera.model != CameraModel.RECTILINEAR or in_camera.model not in (
-            CameraModel.RECTILINEAR, CameraModel.FISHEYE):
-        raise NotImplementedError(
-            "the warp kernel takes a rectilinear output and a fisheye or "
-            "rectilinear input (other projections: ROADMAP.md)")
+    if in_camera.model not in (CameraModel.RECTILINEAR, CameraModel.FISHEYE):
+        raise ValueError("the warp kernel takes a fisheye or rectilinear input "
+                         f"camera, got {in_camera.model.value!r}")
 
 
 def _camera_args(out_camera: Camera, in_camera: Camera, border: float):
@@ -122,32 +154,88 @@ def _camera_args(out_camera: Camera, in_camera: Camera, border: float):
             int(i.model == CameraModel.FISHEYE), float(border))
 
 
+# A warper's luma and chroma grids stay on the device between launches
+# (198 MB and 49 MB at the stock 4680x3520 canvas).
+@functools.lru_cache(maxsize=2)
+def ray_grid_planar(out_camera: Camera, out_size: Tuple[int, int],
+                    device: torch.device) -> torch.Tensor:
+    """(3, H, W) float32 output rays, contiguous: what the ray-grid mode
+    reads, computed as :func:`~video_annotator_tpu_torch.ops.warp_plain.
+    compute_warp_map` computes them, once per camera, size and device."""
+    return ray_grid(out_camera, out_size, device).permute(2, 0, 1).contiguous()
+
+
+def variant(out_camera: Camera, interp: str, levels: Optional[TileLevels]) -> str:
+    """The modes of K1 a warp runs in, as its kernel object's suffix:
+    ``""`` for the bilinear, rectilinear, no-mip kernels of
+    ``csrc/warp.cu``, else ``_bicubic`` or ``_lanczos``, ``_rays``,
+    ``_mip``, in that order, for those of ``csrc/warp_modes.cu``."""
+    if interp not in INTERPS:
+        raise ValueError(f"--interp must be one of {INTERPS}, got {interp!r}")
+    modes = (interp if interp != "bilinear" else None,
+             "rays" if out_camera.model != CameraModel.RECTILINEAR else None,
+             "mip" if levels is not None and levels.max_level > 0 else None)
+    return "".join(f"_{m}" for m in modes if m)
+
+
+def mode_kernel(whole: cuda_lib.CudaKernel, suffix: str) -> cuda_lib.CudaKernel:
+    """The kernel object that counts the launches of ``vat_warp_modes``
+    standing in for ``whole`` (an entry's whole-frame kernel object, one
+    rotation per frame or per tile row) in the variant ``suffix``
+    (:func:`variant`): made at the variant's first launch, it replaces
+    ``whole``'s TPU launch site."""
+    base, rs = ((whole.name[:-3], "_rs") if whole.name.endswith("_rs")
+                else (whole.name, ""))
+    name = base + suffix + rs
+    if name not in cuda_lib.KERNELS:
+        cuda_lib.CudaKernel(name, "vat_warp_modes", _MODES_ARGTYPES, source=_MODES_SOURCE,
+                            replaces=whole.replaces)
+    return cuda_lib.KERNELS[name]
+
+
+def _plain(src: torch.Tensor, rotation: torch.Tensor, out_camera: Camera,
+           in_camera: Camera, out_size: Tuple[int, int], border: float,
+           interp: str, levels: Optional[TileLevels], source_levels) -> torch.Tensor:
+    """(P, H, W) planes of one frame through one map; ``source_levels``
+    gives levels 1..L of the planes for a level map whose largest is L."""
+    coords = compute_warp_map(out_camera, in_camera, rotation, out_size)
+    if levels is None or levels.max_level == 0:
+        return torch.stack([sample(plane.to(torch.float32) - border, coords, interp) + border
+                            for plane in src])
+    stacks = [src] + source_levels(src, levels.max_level)
+    level_px = levels.per_pixel(out_size)
+    return torch.stack([sample_levels([s[i] for s in stacks], coords, level_px, border, interp)
+                        for i in range(src.shape[0])])
+
+
 def warp_planes_f32_plain(src: torch.Tensor, rotation: torch.Tensor,
                           out_camera: Camera, in_camera: Camera,
-                          out_size: Tuple[int, int],
-                          border: float = 0.0) -> torch.Tensor:
+                          out_size: Tuple[int, int], border: float = 0.0,
+                          interp: str = "bilinear",
+                          levels: Optional[TileLevels] = None) -> torch.Tensor:
     """Plain torch version of K1's float mode: (P, H, W) float planes of
     one frame, one (3, 3) matrix or a (ny, 3, 3) stack -> (P, out_h,
     out_w) float32, neither rounded nor clamped, sampled centred on
-    ``border``."""
-    coords = compute_warp_map(out_camera, in_camera, rotation, out_size)
-    return torch.stack([
-        bilinear_sample(plane.to(torch.float32) - border, coords) + border
-        for plane in src
-    ])
+    ``border``; with ``levels``, the per-tile mip of float levels."""
+    return _plain(src, rotation, out_camera, in_camera, out_size, border, interp,
+                  levels, lambda p, n: float_levels(p.to(torch.float32), n))
 
 
 def warp_planes_u8_plain(src: torch.Tensor, rotations: torch.Tensor,
                          out_camera: Camera, in_camera: Camera,
-                         out_size: Tuple[int, int],
-                         border: float = 0.0) -> torch.Tensor:
+                         out_size: Tuple[int, int], border: float = 0.0,
+                         interp: str = "bilinear",
+                         levels: Optional[TileLevels] = None) -> torch.Tensor:
     """Plain torch version of K1's uint8 mode: (T, P, H, W) uint8 planes,
     (T, 3, 3) matrices or a (T, ny, 3, 3) stack -> (T, P, out_h, out_w)
     uint8, one map per frame shared by its P planes, rounded half to
-    even."""
+    even; with ``levels``, the per-tile mip of levels rounded to bytes."""
+    def byte_levels(planes, n):
+        return [to_u8(f) for f in float_levels(planes.to(torch.float32), n)]
+
     return torch.stack([
-        to_u8(warp_planes_f32_plain(src[t], rotations[t], out_camera,
-                                    in_camera, out_size, border))
+        to_u8(_plain(src[t], rotations[t], out_camera, in_camera, out_size, border,
+                     interp, levels, byte_levels))
         for t in range(src.shape[0])
     ])
 
@@ -165,24 +253,90 @@ def _tile_rows(rotations: torch.Tensor, lead: tuple) -> int:
                      f"{lead + ('ny', 3, 3)}, got {shape}")
 
 
+def level_stacks(src: torch.Tensor, levels: Optional[TileLevels],
+                 border: float) -> list:
+    """Levels 1..L of (T, P, H, W) uint8 or (P, H, W) float32 planes as
+    the modes kernel reads them, L the largest level of ``levels`` (none
+    without it): uint8 staged by K3 (rounded half to even, border-padded
+    rows of ``round_up(W, 128)`` bytes), float32 as ``box_downsample``
+    leaves them."""
+    if levels is None or levels.max_level == 0:
+        return []
+    if levels.max_level > MIP_LEVELS:
+        raise ValueError(f"the warp kernel takes mip levels up to {MIP_LEVELS}, "
+                         f"got {levels.max_level}")
+    flat = src.reshape(-1, *src.shape[-2:]).to(torch.float32)
+    out = float_levels(flat, levels.max_level)
+    if src.dtype == torch.uint8:
+        out = [stage_u8(lv, pad_value=int(border)) for lv in out]
+    return out
+
+
+def launch_modes(src: torch.Tensor, out: torch.Tensor, rotations: torch.Tensor,
+                 out_camera: Camera, in_camera: Camera, border: float, interp: str,
+                 levels: Optional[TileLevels], stacks: list,
+                 kernel: cuda_lib.CudaKernel) -> None:
+    """One launch of ``vat_warp_modes`` on contiguous (T, P, H, W) uint8 or
+    (P, H, W) float32 planes into ``out``, the levels' sources in
+    ``stacks`` (:func:`level_stacks`), counted under ``kernel``."""
+    f32 = src.dtype == torch.float32
+    planes, in_h, in_w = src.shape[-3:]
+    t = 1 if f32 else src.shape[0]
+    out_h, out_w = out.shape[-2:]
+    ny = _tile_rows(rotations, lead=() if f32 else (t,))
+    rays = None
+    if out_camera.model != CameraModel.RECTILINEAR:
+        rays = ray_grid_planar(out_camera, (out_h, out_w), src.device)
+    keep = [src, out, rotations] + ([] if rays is None else [rays])
+    level_args = [None, 0, 0, 0, 0] * MIP_LEVELS
+    level_map, nx = None, 0
+    if stacks:
+        level_map = levels.levels.contiguous()
+        nx = level_map.shape[1]
+        keep += [level_map] + stacks
+        for i, (lv, (h, w)) in enumerate(zip(stacks, _level_sizes(in_h, in_w, len(stacks)))):
+            level_args[5 * i: 5 * i + 5] = [cuda_lib.ptr(lv), lv.shape[-2] * lv.shape[-1],
+                                            lv.shape[-1], h, w]
+    cuda_lib.check_operands(*keep)
+    kernel.launch(
+        int(f32), cuda_lib.ptr(src), cuda_lib.ptr(out), cuda_lib.ptr(rotations),
+        t, planes, in_h, in_w, out_h, out_w, ny,
+        *_camera_args(out_camera, in_camera, border), INTERPS.index(interp),
+        None if rays is None else cuda_lib.ptr(rays),
+        None if level_map is None else cuda_lib.ptr(level_map), nx, *level_args)
+
+
+def _level_sizes(h: int, w: int, n: int) -> list:
+    """(rows, columns) of levels 1..n of an (h, w) plane (``box_downsample``
+    rounds odd sizes up)."""
+    out = []
+    for _ in range(n):
+        h, w = (h + 1) // 2, (w + 1) // 2
+        out.append((h, w))
+    return out
+
+
 def warp_planes_u8(src: torch.Tensor, rotations: torch.Tensor,
                    out_camera: Camera, in_camera: Camera,
                    out_size: Tuple[int, int], border: float = 0.0,
-                   kernels=BATCH_KERNELS) -> torch.Tensor:
+                   kernels=BATCH_KERNELS, interp: str = "bilinear",
+                   levels: Optional[TileLevels] = None) -> torch.Tensor:
     """Warp (T, P, H, W) uint8 planes (P = 1 luma, P = 2 chroma) by
     per-frame (T, 3, 3) matrices, or per-tile-row (T, ny, 3, 3) stacks,
     applied to output rays. ``kernels`` names the kernel objects whose
     launch is counted: the batch's, or the one-frame warp's
-    (:data:`ONE_FRAME_KERNELS`)."""
+    (:data:`ONE_FRAME_KERNELS`). ``interp``, the output camera and
+    ``levels`` select K1's other modes (module docstring)."""
     if src.dim() != 4 or src.dtype != torch.uint8 or src.shape[1] not in (1, 2):
         raise ValueError(f"warp takes (T, 1|2, H, W) uint8, got "
                          f"{tuple(src.shape)} {src.dtype}")
     ny = _tile_rows(rotations, lead=(src.shape[0],))
     _check_cameras(out_camera, in_camera)
+    suffix = variant(out_camera, interp, levels)
     rotations = rotations.to(device=src.device, dtype=torch.float32)
     if src.device.type == "cpu":
         return warp_planes_u8_plain(src, rotations, out_camera, in_camera,
-                                    out_size, border)
+                                    out_size, border, interp, levels)
     cuda_lib.check_cuda(src)
     src = src.contiguous()
     rotations = rotations.contiguous()
@@ -190,8 +344,13 @@ def warp_planes_u8(src: torch.Tensor, rotations: torch.Tensor,
     out_h, out_w = out_size
     out = torch.empty((t, planes, out_h, out_w), dtype=torch.uint8,
                       device=src.device)
+    kernel = kernels[ny > 0][planes - 1]
+    if suffix:
+        launch_modes(src, out, rotations, out_camera, in_camera, border, interp, levels,
+                     level_stacks(src, levels, border), mode_kernel(kernel, suffix))
+        return out
     cuda_lib.check_operands(src, rotations, out)
-    kernels[ny > 0][planes - 1].launch(
+    kernel.launch(
         cuda_lib.ptr(src), cuda_lib.ptr(out), cuda_lib.ptr(rotations),
         t, planes, in_h, in_w, out_h, out_w, ny,
         *_camera_args(out_camera, in_camera, border))
@@ -211,26 +370,30 @@ def chroma_rotations(rotations: torch.Tensor, lead: tuple, out_h_c: int):
 def warp_yuv_batch(ys: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
                    rotations: torch.Tensor, out_camera: Camera,
                    in_camera: Camera, out_camera_c: Camera,
-                   in_camera_c: Camera, out_size: Tuple[int, int]):
+                   in_camera_c: Camera, out_size: Tuple[int, int],
+                   interp: str = "bilinear", levels=(None, None)):
     """Warp a (T, H, W) luma stack and its (T, H/2, W/2) chroma stacks.
 
     Returns ``(wy, wu, wv)``: (T, out_h, out_w) and two
     (T, out_h/2, out_w/2) uint8 stacks. Luma warps with border 0, chroma
     with the neutral 128, both planes of a frame sharing one map.
-    ``rotations`` is (T, 3, 3), or (T, ny, 3, 3) per luma tile row."""
+    ``rotations`` is (T, 3, 3), or (T, ny, 3, 3) per luma tile row.
+    ``levels`` is a (luma, chroma) pair."""
     oh, ow = out_size
     wy = warp_planes_u8(ys[:, None], rotations, out_camera, in_camera,
-                        (oh, ow), border=0.0)[:, 0]
+                        (oh, ow), border=0.0, interp=interp, levels=levels[0])[:, 0]
     wc = warp_planes_u8(torch.stack([us, vs], dim=1),
                         chroma_rotations(rotations, (ys.shape[0],), oh // 2), out_camera_c,
-                        in_camera_c, (oh // 2, ow // 2), border=128.0)
+                        in_camera_c, (oh // 2, ow // 2), border=128.0, interp=interp,
+                        levels=levels[1])
     return wy, wc[:, 0], wc[:, 1]
 
 
 def warp_yuv(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
              rotation: torch.Tensor, out_camera: Camera, in_camera: Camera,
              out_camera_c: Camera, in_camera_c: Camera,
-             out_size: Tuple[int, int]):
+             out_size: Tuple[int, int], interp: str = "bilinear",
+             levels=(None, None)):
     """Warp ONE frame's (H, W) luma and (H/2, W/2) chroma uint8 planes by
     one (3, 3) matrix or a (ny, 3, 3) stack per luma tile row: a luma
     launch and a two-plane chroma launch of K1's uint8 mode with T = 1.
@@ -240,27 +403,30 @@ def warp_yuv(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                          f"stack, got {tuple(rotation.shape)}")
     oh, ow = out_size
     wy = warp_planes_u8(y[None, None], rotation[None], out_camera, in_camera,
-                        (oh, ow), border=0.0, kernels=ONE_FRAME_KERNELS)
+                        (oh, ow), border=0.0, kernels=ONE_FRAME_KERNELS,
+                        interp=interp, levels=levels[0])
     wc = warp_planes_u8(torch.stack([u, v])[None],
                         chroma_rotations(rotation, (), oh // 2)[None],
                         out_camera_c, in_camera_c, (oh // 2, ow // 2),
-                        border=128.0, kernels=ONE_FRAME_KERNELS)
+                        border=128.0, kernels=ONE_FRAME_KERNELS, interp=interp,
+                        levels=levels[1])
     return wy[0, 0], wc[0, 0], wc[0, 1]
 
 
 def _warp_f32(src: torch.Tensor, rotation: torch.Tensor, out_camera: Camera,
               in_camera: Camera, out_size: Tuple[int, int], border: float,
-              kernels) -> torch.Tensor:
+              kernels, interp: str, levels: Optional[TileLevels]) -> torch.Tensor:
     if (src.dim() != 3 or src.dtype != torch.float32
             or not 1 <= src.shape[0] <= MAX_F32_PLANES):
         raise ValueError(f"the float warp takes (1..{MAX_F32_PLANES}, H, W) "
                          f"float32, got {tuple(src.shape)} {src.dtype}")
     ny = _tile_rows(rotation, lead=())
     _check_cameras(out_camera, in_camera)
+    suffix = variant(out_camera, interp, levels)
     rotation = rotation.to(device=src.device, dtype=torch.float32)
     if src.device.type == "cpu":
         return warp_planes_f32_plain(src, rotation, out_camera, in_camera,
-                                     out_size, border)
+                                     out_size, border, interp, levels)
     cuda_lib.check_cuda(src)
     src = src.contiguous()
     rotation = rotation.contiguous()
@@ -268,8 +434,13 @@ def _warp_f32(src: torch.Tensor, rotation: torch.Tensor, out_camera: Camera,
     out_h, out_w = out_size
     out = torch.empty((planes, out_h, out_w), dtype=torch.float32,
                       device=src.device)
+    kernel = kernels[ny > 0]
+    if suffix:
+        launch_modes(src, out, rotation, out_camera, in_camera, border, interp, levels,
+                     level_stacks(src, levels, border), mode_kernel(kernel, suffix))
+        return out
     cuda_lib.check_operands(src, rotation, out)
-    kernels[ny > 0].launch(
+    kernel.launch(
         cuda_lib.ptr(src), cuda_lib.ptr(out), cuda_lib.ptr(rotation),
         planes, in_h, in_w, out_h, out_w, ny,
         *_camera_args(out_camera, in_camera, border))
@@ -278,7 +449,9 @@ def _warp_f32(src: torch.Tensor, rotation: torch.Tensor, out_camera: Camera,
 
 def warp_frame_f32(image: torch.Tensor, rotation: torch.Tensor,
                    out_camera: Camera, in_camera: Camera,
-                   out_size: Tuple[int, int], border: float = 0.0) -> torch.Tensor:
+                   out_size: Tuple[int, int], border: float = 0.0,
+                   interp: str = "bilinear",
+                   levels: Optional[TileLevels] = None) -> torch.Tensor:
     """Warp one (H, W) float32 plane by one (3, 3) matrix, or a
     (ny, 3, 3) stack per tile row, to a float32 (out_h, out_w) plane,
     neither rounded nor clamped."""
@@ -286,15 +459,17 @@ def warp_frame_f32(image: torch.Tensor, rotation: torch.Tensor,
         raise ValueError(f"warp_frame_f32 takes one (H, W) plane, got "
                          f"{tuple(image.shape)}")
     return _warp_f32(image[None], rotation, out_camera, in_camera, out_size,
-                     border, FRAME_F32_KERNELS)[0]
+                     border, FRAME_F32_KERNELS, interp, levels)[0]
 
 
 def warp_planes_f32(planes: torch.Tensor, rotation: torch.Tensor,
                     out_camera: Camera, in_camera: Camera,
-                    out_size: Tuple[int, int], border: float = 0.0) -> torch.Tensor:
+                    out_size: Tuple[int, int], border: float = 0.0,
+                    interp: str = "bilinear",
+                    levels: Optional[TileLevels] = None) -> torch.Tensor:
     """Warp (P, H, W) float32 planes of one frame (P up to 4; U and V with
     border 128) through ONE map in one launch; (P, out_h, out_w) float32.
     ``rotation`` is one (3, 3) matrix or a (ny, 3, 3) stack per tile row
     of THESE planes (chroma callers gather it, :func:`chroma_row_rotations`)."""
     return _warp_f32(planes, rotation, out_camera, in_camera, out_size, border,
-                     PLANES_F32_KERNELS)
+                     PLANES_F32_KERNELS, interp, levels)

@@ -15,7 +15,10 @@ On a card a rotation cell warps its float planes through kernel K1's
 float mode (``FrameWarper.__call__``: one luma launch, one two-plane
 chroma launch) and a similarity cell its uint8 planes through K1's
 one-frame uint8 mode (``SimilarityWarper.warp_yuv``); deshake cells, and
-every cell on the CPU, use the families' plain torch warps.
+every cell on the CPU, use the families' plain torch warps. ``--interp``
+reaches the rotation and similarity cells, ``--projection`` and
+``--prefilter`` the rotation cells (K1's 4-tap, ray-grid and mip modes);
+the level map probes the largest rotation-cell correction.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from video_annotator_tpu_torch.pipeline.render import (
     build_cameras,
     check_ported,
     compute_corrections,
+    max_rotation_deg,
     open_trimmed,
     output_fps,
 )
@@ -233,16 +237,20 @@ def render_compare(source: str, dest: Optional[str], modes: Sequence[str],
         "deshake": deshake_corrections,
     }
     per_mode = []
+    need_deg = 0.0  # the largest rotation-cell correction
     for fam, sub, lock in parsed:
         corr = corrections[fam](trajs[fam], dataclasses.replace(
             options, stabilise=sub,
             horizon_lock=(options.horizon_lock or lock) if fam == "rotation" else False))
+        if fam == "rotation":
+            need_deg = max(need_deg, max_rotation_deg(corr))
         if fam == "similarity" and dev.type == "cuda":
             corr = SimilarityWarper.matrices(corr)
         per_mode.append((fam, torch.from_numpy(np.asarray(corr, np.float32)).to(dev)))
     num_frames = min(t.num_frames for t in trajs.values()) if trajs else 0
 
-    warper = FrameWarper(in_cam, out_cam)
+    warper = FrameWarper(in_cam, out_cam, max(options.max_correction_deg, need_deg + 0.5),
+                         options.prefilter == "auto", options.interp, dev)
     sim_warper = SimilarityWarper(meta.width, meta.height, interp=options.interp)
     rows, cols = comparison_grid_size(len(modes))
     cell_h, cell_w = warper.out_h, warper.out_w

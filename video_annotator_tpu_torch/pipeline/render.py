@@ -35,11 +35,13 @@ the two-phase skeleton: their analysers write a ``similarity`` or
    frame's correction into one rotation per 8-row output tile row
    (``smoothing/rolling.py``: scanline poses from the gyro stream, else
    from the trajectory's frame-rate velocity), which K1 takes in its
-   per-tile-row mode.
+   per-tile-row mode. ``--interp bicubic|lanczos``, a ``--projection``
+   other than rectilinear and ``--prefilter auto`` run K1's 4-tap,
+   ray-grid and per-tile mip modes (:class:`FrameWarper`).
 
 Every library entry point takes ``device``. Options outside the ported
-slices (other resamplers and projections, prefilter, crop, overlays)
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+slices (crop, overlays, previews) raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -82,7 +84,9 @@ from video_annotator_tpu_torch.ops.ransac import (
 )
 from video_annotator_tpu_torch.models import FILTER_ALIASES
 from video_annotator_tpu_torch.ops import warp_kernel
+from video_annotator_tpu_torch.ops.mip import tile_levels
 from video_annotator_tpu_torch.ops.warp_plain import (
+    INTERPS,
     box_downsample,
     mip_camera,
     num_tile_rows,
@@ -188,8 +192,9 @@ class RenderOptions:
     preview: Optional[str] = None
     preview_every: int = 30
     display: bool = False
-    # Accepted for the frozen CLI surface; bounds nothing in this package
-    # (the warp kernel has no static per-tile windows to size).
+    # The angle the --prefilter auto level map probes (with the clip's own
+    # largest correction, where it is known); the warp kernel itself has
+    # no static per-tile windows to size.
     max_correction_deg: float = 8.0
     prefilter: str = "off"  # off | auto
     interp: str = "bilinear"
@@ -200,9 +205,6 @@ class RenderOptions:
 
 # (option, value that this package runs, ROADMAP.md item that ports the rest)
 _UNPORTED = (
-    ("interp", ("bilinear",), "interp/projection/prefilter modes"),
-    ("prefilter", ("off",), "interp/projection/prefilter modes"),
-    ("projection", ("rect", "flat", "gnomonic"), "interp/projection/prefilter modes"),
     ("crop_rect", (None,), "compare/debug/workflow/calibrate/join/probe"),
     ("debug", (False,), "compare/debug/workflow/calibrate/join/probe"),
     ("preview", (None,), "compare/debug/workflow/calibrate/join/probe"),
@@ -833,23 +835,44 @@ def max_rotation_deg(rotations: np.ndarray) -> float:
 
 
 class FrameWarper:
-    """YUV 4:2:0 warp between a fisheye input and a rectilinear output
-    camera (kernel K1 on CUDA tensors): a frame batch to uint8
+    """YUV 4:2:0 warp between a fisheye input and the output camera
+    (kernel K1 on CUDA tensors): a frame batch to uint8
     (:meth:`warp_yuv_batch`, the encode path), one frame to uint8
     (:meth:`warp_yuv`) or one frame's float planes to float32
     (:meth:`__call__`, the compare grid's rotation cells).
 
     Each entry also takes the rolling-shutter form of its rotations, one
     per 8-row luma tile row: (T, ny, 3, 3) for the batch, (ny, 3, 3) for
-    one frame. Chroma tile row j then takes luma tile row 2j's rotation."""
+    one frame. Chroma tile row j then takes luma tile row 2j's rotation.
 
-    def __init__(self, in_cam: Camera, out_cam: Camera):
+    ``interp`` picks the resampler (bilinear, or K1's 4-tap mode); an
+    output camera that is not rectilinear runs the ray-grid mode;
+    ``prefilter`` computes the per-tile mip level maps of luma and chroma
+    (``ops/mip.py``) on ``device``, the frames' device, which probe
+    ``max_correction_deg``, and runs the mip mode where a tile's level is
+    above 0. On the CPU as on the card: the JAX package's CPU fallback uses
+    one global level instead."""
+
+    def __init__(self, in_cam: Camera, out_cam: Camera, max_correction_deg: float = 8.0,
+                 prefilter: bool = False, interp: str = "bilinear", device="cpu"):
+        if interp not in INTERPS:
+            raise ValueError(
+                f"--interp must be bilinear, bicubic or lanczos, got {interp!r}")
         self.in_cam = in_cam
         self.out_cam = out_cam
         self.out_w = out_cam.width - out_cam.width % 2
         self.out_h = out_cam.height - out_cam.height % 2
         self.in_half = scaled_camera(in_cam, 0.5)
         self.out_half = scaled_camera(out_cam, 0.5)
+        self.interp = interp
+        sizes = ((self.out_h, self.out_w), (self.out_h // 2, self.out_w // 2))
+        cams = ((out_cam, in_cam), (self.out_half, self.in_half))
+        self.levels = (None, None)
+        if prefilter:
+            self.levels = tuple(tile_levels(o, i, max_correction_deg, size, interp,
+                                            device=torch.device(device))
+                                for (o, i), size in zip(cams, sizes))
+        self._modes = dict(interp=interp, levels=self.levels)
 
     def warp_yuv_batch(self, ys, us, vs, rotations: torch.Tensor):
         """Per-frame plane sequences + (T, 3, 3) or (T, ny, 3, 3)
@@ -857,7 +880,7 @@ class FrameWarper:
         wy, wu, wv = warp_kernel.warp_yuv_batch(
             torch.stack(list(ys)), torch.stack(list(us)), torch.stack(list(vs)),
             rotations, self.out_cam, self.in_cam, self.out_half, self.in_half,
-            (self.out_h, self.out_w))
+            (self.out_h, self.out_w), **self._modes)
         return list(zip(wy, wu, wv))
 
     def __call__(self, y, u, v, rotation: torch.Tensor):
@@ -867,12 +890,14 @@ class FrameWarper:
         Chroma samples centred on 128 so regions outside the image come
         out neutral, not green."""
         size = (self.out_h, self.out_w)
-        wy = warp_kernel.warp_frame_f32(y, rotation, self.out_cam, self.in_cam, size)
+        wy = warp_kernel.warp_frame_f32(y, rotation, self.out_cam, self.in_cam, size,
+                                        interp=self.interp, levels=self.levels[0])
         wc = warp_kernel.warp_planes_f32(
             torch.stack([u, v]),
             warp_kernel.chroma_rotations(rotation, (), self.out_h // 2),
             self.out_half, self.in_half,
-            (self.out_h // 2, self.out_w // 2), border=128.0)
+            (self.out_h // 2, self.out_w // 2), border=128.0, interp=self.interp,
+            levels=self.levels[1])
         return wy, wc[0], wc[1]
 
     def warp_yuv(self, y, u, v, rotation: torch.Tensor):
@@ -880,7 +905,7 @@ class FrameWarper:
         stack -> uint8 ``(wy, wu, wv)``."""
         return warp_kernel.warp_yuv(
             y, u, v, rotation, self.out_cam, self.in_cam, self.out_half,
-            self.in_half, (self.out_h, self.out_w))
+            self.in_half, (self.out_h, self.out_w), **self._modes)
 
 
 def encode(source: str, dest: Optional[str], traj: Trajectory,
@@ -892,12 +917,16 @@ def encode(source: str, dest: Optional[str], traj: Trajectory,
     reader, meta, first, last = open_trimmed(source, options, dev)
     in_cam, out_cam = build_cameras(meta, options)
     corrections = compute_corrections(traj, options, dev)
-    warper = FrameWarper(in_cam, out_cam)
     if options.rolling_shutter:
         with prof.stage("scanline"):
             corrections = _scanline_corrections(
                 source, traj, corrections, options, meta, in_cam, out_cam,
-                num_tile_rows(warper.out_h), dev)
+                num_tile_rows(out_cam.height - out_cam.height % 2), dev)
+    # The prefilter's level map probes the clip's largest correction.
+    need_deg = max_rotation_deg(corrections.reshape(-1, 3, 3))
+    budget_deg = max(options.max_correction_deg, need_deg + 0.5)
+    warper = FrameWarper(in_cam, out_cam, budget_deg, options.prefilter == "auto",
+                         options.interp, dev)
     out_meta = VideoMeta(width=warper.out_w, height=warper.out_h,
                          fps=output_fps(options, meta),
                          num_frames=traj.num_frames)

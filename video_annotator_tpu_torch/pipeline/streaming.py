@@ -18,10 +18,13 @@ pass keyed by the global pair index, so the trajectory is the two-phase
 paired analyse's. ``tracked`` runs :class:`Tracker` frame by frame.
 
 The ring holds ``radius + warp_batch`` decoded YUV frames on the device
-(about 17 MB a frame at 3840x2880). The JAX package's check of each
-batch's correction against the warp kernel's window budget (sized from
-the attitude and, under ``--horizon-lock``, the initial tilt) is dropped:
-K1 reads the whole source plane and has no window to overflow.
+(about 17 MB a frame at 3840x2880). The corrections are not known up
+front, so the ``--prefilter auto`` level map probes the JAX package's
+budget: ``--max-correction`` plus the attitude plus, under
+``--horizon-lock``, the initial tilt and 2 degrees. The JAX package's
+check of each batch's correction against that budget is dropped: it
+guarded the Pallas kernel's source windows, and K1 reads the whole
+source plane.
 
 ``--horizon-lock`` tracks even with ``--stabilise none`` (the lock needs
 the measured attitude) and takes world-up from the source's telemetry
@@ -50,6 +53,7 @@ from video_annotator_tpu_torch.pipeline.render import (
     build_cameras,
     check_ported,
     make_window_corrections,
+    max_rotation_deg,
     open_trimmed,
     output_fps,
     resolve_analysis_mode,
@@ -59,6 +63,22 @@ from video_annotator_tpu_torch.pipeline.trajectory import Trajectory, trajectory
 # The Kalman filter's memory is about (r_noise / q_noise) ** (1/4) = 10
 # frames: a fixed-lag window shorter than that would seam at batch edges.
 KALMAN_MIN_RADIUS = 10
+
+
+def streaming_budget_deg(options: RenderOptions, up0) -> float:
+    """The correction angle the prefilter's level map probes when the
+    corrections are not known up front: ``--max-correction``, the largest
+    rotation of the ``--roll/--pitch/--yaw`` attitude and, under
+    ``--horizon-lock``, the tilt of the initial up vector plus 2 degrees
+    (JAX ``streaming.py:119-142``)."""
+    attitude = so3.from_euler(np.radians(options.roll), np.radians(options.pitch),
+                              np.radians(options.yaw))
+    attitude_deg = max_rotation_deg(attitude[None].cpu().numpy())
+    lock_deg = 0.0
+    if options.horizon_lock:
+        u = np.asarray([0.0, -1.0, 0.0] if up0 is None else up0, np.float64)
+        lock_deg = float(np.degrees(np.arccos(np.clip(-u[1], -1.0, 1.0)))) + 2.0
+    return options.max_correction_deg + attitude_deg + lock_deg
 
 
 def render_streaming(source: str, dest: Optional[str],
@@ -96,7 +116,8 @@ def render_streaming(source: str, dest: Optional[str],
     in_cam, out_cam = build_cameras(meta, options)
     up0 = (_estimate_up0(source, float(first) / float(meta.fps), dev)
            if options.horizon_lock else None)
-    warper = FrameWarper(in_cam, out_cam)
+    warper = FrameWarper(in_cam, out_cam, streaming_budget_deg(options, up0),
+                         options.prefilter == "auto", options.interp, dev)
     n_expect = (last - first) if meta.num_frames else 0
     out_meta = VideoMeta(width=warper.out_w, height=warper.out_h,
                          fps=output_fps(options, meta), num_frames=n_expect)

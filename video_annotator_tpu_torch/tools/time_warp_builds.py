@@ -112,7 +112,7 @@ def compile_all(sources: dict, tmp: Path, sass_dir) -> list:
     procs = {}
     for label, path in sources.items():
         target = tmp / f"libwarp_{label}.so"
-        cmd = [nvcc, *cuda_lib.NVCC_FLAGS, "-o", str(target), str(path)]
+        cmd = [nvcc, *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(target), str(path)]
         procs[label] = (target, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     builds = []
