@@ -9,7 +9,9 @@ the last line is printed):
 
 1. Device and build: the card's name and power limit, torch and CUDA
    versions; the CUDA kernels built from ``csrc/`` with ``nvcc`` for
-   ``sm_90a`` (build seconds and the ``-Xptxas -v`` report).
+   ``sm_90a`` (build seconds and the ``-Xptxas -v`` report); whether
+   ``make -C native`` built the libav reader and writer (the make's last
+   line where it did not).
 2. Each kernel against its plain PyTorch version on the same card inputs
    at the main paths' shapes, both timed with CUDA events, beside the
    kernel's bound: K1 on a 4K warp batch; K1's float mode on one 4K luma
@@ -30,6 +32,13 @@ the last line is printed):
    3l launch; each counted under its own kernel object alone: the largest
    difference and the number of differing values, the kernel timed alone
    on prepared levels (the time to build the levels logged beside it).
+   K1's float frame batch (row 6) at 8 4K frames and its band (row 9) for
+   2, 3 and 4 ranks, bilinear, bicubic and with an equirect output: every
+   launch with 0 differing values from its plain version, and the bands,
+   concatenated and cropped, equal to the one-frame float launch; a
+   band's kernel timed queued behind a sleeping kernel (its launch is
+   shorter than its wrapper's host time) and bounded by the source rows
+   its map reaches.
 3. Renders through the CLI on 3840x2880 synthetic clips (64 frames unless
    stated), each with every launch count set to 0 just before it and read
    just after:
@@ -97,8 +106,21 @@ the last line is printed):
       measured in phase 2; the first and last frames of
       each are held to the plain warp of the same mode, the differing
       values counted.
+   m. where the native libraries built: the stock render of 24 frames to
+      ``.mp4`` (libx264 at QP 19), decoded back through the port's
+      ``NativeVideoSource`` (frame count and size, encode fps); where they
+      did not, a line saying that the render did not run and why.
    The deshake analyse and the compare render then run once more under
    torch.profiler, for the device's busy time and idle share.
+   Then the three phases of ``dryrun_multichip`` through ``parallel/``
+   at world size 1 (an NCCL group over a ``HashStore``), with the launch
+   counts at 0 just before and read just after: the pipeline step on a
+   (2, 60) x 1280x960 clip at radius 30 (non-identity corrections), the
+   8 x 4K stream batch in the three variants of row 6, the similarity
+   and deshake batch warps at 8 x 4K, the spatial warp and its bands
+   for 2, 3 and 4 ranks; each held to its unsharded counterpart, wall ms
+   for each; the step's own launches of row 6, K3 and K2 at its shapes
+   held to their plain versions.
 4. Where tracked analyse spends its time at 4K: host wall time per step
    and per span of ``Tracker.step``, then kernel launches and device time
    per step from torch.profiler; and the fixed-lag Kalman smoother of one
@@ -126,8 +148,9 @@ import numpy as np
 import torch
 
 from video_annotator_tpu_torch import cli, so3
-from video_annotator_tpu_torch.camera import CameraModel, CameraPreset
+from video_annotator_tpu_torch.camera import CameraModel, CameraPreset, get_output_camera
 from video_annotator_tpu_torch.io.synthetic import (
+    SyntheticCamera,
     SyntheticSource,
     render_frame,
     write_telemetry_mp4,
@@ -140,6 +163,9 @@ from video_annotator_tpu_torch.ops.affine import fit_similarity
 from video_annotator_tpu_torch.ops.lk import build_pyramid
 from video_annotator_tpu_torch.ops.phasecorr import phase_correlate
 from video_annotator_tpu_torch.ops.warp_plain import box_downsample, num_tile_rows
+from video_annotator_tpu_torch.parallel import mesh as pmesh
+from video_annotator_tpu_torch.parallel import pipeline as ppipeline
+from video_annotator_tpu_torch.parallel import streams as pstreams
 from video_annotator_tpu_torch.pipeline import compare
 from video_annotator_tpu_torch.pipeline import render as trender
 from video_annotator_tpu_torch.pipeline import streaming
@@ -237,6 +263,21 @@ MODE_CASES = (
     ("bicubic", "stereographic", True, ("warp_luma", "warp_chroma"), (True,)),
 )
 STAGE_OPS = 3
+# The parallel layer (rows 6 and 9): STREAMS 4K streams on one card (the
+# README's 8 x 4K60 batch), the variants its phase launches, the rank
+# counts of the spatial warp's bands (3 clamps: 440 tile rows).
+STREAMS = 8
+PARALLEL_VARIANTS = (("bilinear", "rect"), ("bicubic", "rect"), ("bilinear", "equirect"))
+BAND_SHARDS = (2, 3, 4)
+PARALLEL_KERNELS = ("warp_frames_f32", "warp_frames_f32_bicubic", "warp_frames_f32_rays",
+                    "warp_band_f32", "warp_band_f32_bicubic", "warp_band_f32_rays",
+                    "warp_luma", "warp_chroma", "stage", "lk_level")
+# Cycles of the sleeping kernel that queued_ms puts ahead of the calls it
+# times: about 10 ms at the H100's clocks, for calls that take the host
+# about 0.1 ms each.
+QUEUE_CYCLES = 20_000_000
+PIPE_CORNERS = 32  # build_pipeline_step's max_corners: the dryrun's
+NATIVE_FRAMES = 24
 LK_TEMPLATE_OPS = 24 * 23 * 9 + 441 * 26
 LK_ITER_OPS = 441 * 14
 # K2 bytes per point: its prev template footprint (25 x 24), one next
@@ -714,10 +755,11 @@ def lk_chunk(dev):
     return grays, pts, valid
 
 
-def compare_lk_levels(tag, levels, pts, valid, launch, plain):
+def compare_lk_levels(tag, levels, pts, valid, launch, plain, iters=LK_ITERS):
     """Run K2 coarse to fine over ``levels`` (prev, next, band) with each
     level's guess from the kernel's coarser level; compare every level
-    with the plain version on the same arguments and time level 0."""
+    with the plain version on the same arguments and time level 0
+    (``launch`` and ``plain`` run ``iters`` Newton iterations)."""
     flow = torch.zeros_like(pts)
     status = valid
     max_err, worst_agree, timing = 0.0, 1.0, None
@@ -741,7 +783,7 @@ def compare_lk_levels(tag, levels, pts, valid, launch, plain):
         if lvl == 0:
             timing = (cuda_ms(lambda: launch(prev, nxt, pf, pi), 20),
                       cuda_ms(lambda: plain(prev, nxt, pf, pi), 3, 1),
-                      lk_bound(pf.shape[0], LK_ITERS))
+                      lk_bound(pf.shape[0], iters))
         flow = k[:, :2] * scale
         status = status & kok
     ms, plain_ms, b = timing
@@ -1262,7 +1304,7 @@ def up_angle_deg(a, b) -> float:
     return math.degrees(math.acos(min(1.0, max(-1.0, cos))))
 
 
-def phase_renders(dev, label):
+def phase_renders(dev, label, native_ok, native_why):
     """The renders; returns the launch counts summed over them."""
     total = {n: 0 for n in cuda_lib.KERNELS}
     warp_stage = ("warp_luma", "warp_chroma", "stage")
@@ -1407,6 +1449,7 @@ def phase_renders(dev, label):
                               (0, FRAMES // 2, FRAMES - 1), dev)
         os.remove(rolling)
         phase_mode_renders(tmp, run)
+        phase_native_render(tmp, run, native_ok, native_why)
         return total
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1684,6 +1727,383 @@ def phase_telemetry_parts(dev, label):
           "the prefix product drifted from the sequential scan")
 
 
+# --- rows 6 and 9: K1's float frame batch and band ------------------------
+
+
+def parallel_warper(dev, projection: str = "rect"):
+    """A FrameWarper of the stock 4K cameras, with another output projection
+    of the stock canvas where ``projection`` is not ``rect``."""
+    meta = trender.VideoMeta(W, H, 30, FRAMES)
+    return trender.FrameWarper(*trender.build_cameras(
+        meta, stock_options(projection=projection)), 8.0, False, "bilinear", dev)
+
+
+def float_lumas(dev, n: int) -> torch.Tensor:
+    """The first ``n`` luma planes of the stock clip as float32 (the
+    parallel layer's streams)."""
+    return source_lumas(dev, n).to(torch.float32).contiguous()
+
+
+def frames_bound(interp, projection, src, out, rot, in_cam) -> dict:
+    """The least time of a launch over (T, H, W) float planes into (T, h, w)
+    or a band's (h, w) rows: the modes launch's count with each frame one
+    plane."""
+    return mode_bound(interp, projection != "rect", False, src.reshape(-1, 1, *src.shape[-2:]),
+                      out.reshape(-1, 1, *out.shape[-2:]), rot, in_cam, [], None)
+
+
+def source_rows_reached(coords, h: int, w: int, interp: str) -> int:
+    """Rows of an (h, w) source that taps at ``coords`` (..., 2), (x, y)
+    order, read: the rows of every in-image tap (two per pixel bilinear,
+    four with 4 taps) of a pixel whose taps reach a column of the image."""
+    taps = (0, 1) if interp == "bilinear" else (-1, 0, 1, 2)
+    x0 = torch.floor(coords[..., 0])
+    y0 = torch.floor(coords[..., 1])
+    cols = (x0 + taps[-1] >= 0) & (x0 + taps[0] < w)
+    reached = torch.zeros(h, dtype=torch.bool, device=coords.device)
+    for j in taps:
+        y = y0 + j
+        hit = cols & (y >= 0) & (y < h)
+        reached[y[hit].to(torch.int64)] = True
+    return int(reached.sum())
+
+
+def band_bound(interp, projection, frame, band, rot, oc, ic, size, n, off) -> dict:
+    """The least time of one band launch: :func:`frames_bound` with the
+    source read only in the rows that the band's map reaches (its plain
+    version's coordinates), each once."""
+    coords = warp_kernel.band_coords(rot, oc, ic, size, n, off)
+    rows = source_rows_reached(coords, *frame.shape, interp)
+    return dict(frames_bound(interp, projection, frame[:rows], band, rot, ic), src_rows=rows)
+
+
+def queued_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls queued behind a
+    sleeping kernel, timed with CUDA events: the card starts the calls
+    only once the host has enqueued them all, so the host's time per
+    call, which events around calls shorter than it would count, is left
+    out. Fails where the host took longer to enqueue than the sleep."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    slept, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    t0 = time.perf_counter()
+    slept.record()
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = slept.elapsed_time(start)
+    check(host_ms < sleep_ms, f"the host enqueued in {host_ms:.3f} ms, longer than the "
+          f"{sleep_ms:.3f} ms sleep ahead of it")
+    return start.elapsed_time(end) / reps
+
+
+def phase_warp_parallel(dev, results):
+    """K1's float frame batch (row 6) at B = STREAMS 4K frames and its band
+    (row 9) for 2, 3 and 4 ranks at the stock shapes, in each variant the
+    parallel phase launches (PARALLEL_VARIANTS): every launch held to its
+    plain version (0 differing values expected), counted under its own
+    object alone; the bands, concatenated and cropped, against the
+    one-frame float launch (row 5) bit for bit; kernel and plain timed,
+    the bands' kernels queued behind a sleep (a band's launch is shorter
+    than its wrapper's host time), their bound from the source rows they
+    reach."""
+    ys = float_lumas(dev, STREAMS)
+    g = torch.Generator().manual_seed(37)
+    rots = so3.exp(torch.randn((STREAMS, 3), generator=g) * 0.02).to(dev)
+    for interp, projection in PARALLEL_VARIANTS:
+        warper = parallel_warper(dev, projection)
+        oc, ic, size = warper.out_cam, warper.in_cam, (warper.out_h, warper.out_w)
+        suffix = warp_kernel.variant(oc, interp, None)
+
+        def launch_checked(name, entry):
+            before = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+            got = entry()
+            torch.cuda.synchronize()
+            moved = {n for n, k in cuda_lib.KERNELS.items() if k.launches != before.get(n, 0)}
+            check(moved == {name} and cuda_lib.KERNELS[name].launches == before.get(name, 0) + 1,
+                  f"{name}: launched {moved}")
+            return got
+
+        name = "warp_frames_f32" + suffix
+        got = launch_checked(name, lambda: warp_kernel.warp_frames_f32(
+            ys, rots, oc, ic, size, interp=interp))
+        want = warp_kernel.warp_frames_f32_plain(ys, rots, oc, ic, size, interp=interp)
+        diff = (got - want).abs()
+        max_err, differ = float(diff.max()), int((diff > 0).sum())
+        ms = cuda_ms(lambda: warp_kernel.warp_frames_f32(ys, rots, oc, ic, size, interp=interp),
+                     10)
+        plain_ms = cuda_ms(lambda: warp_kernel.warp_frames_f32_plain(
+            ys, rots, oc, ic, size, interp=interp), 2, 0)
+        b = frames_bound(interp, projection, ys, got, rots, ic)
+        log(f"[K1 {name}] {projection} output, {tuple(ys.shape)} f32 -> {tuple(got.shape)}: "
+            f"max |diff| {max_err:.3g}, {differ} of {got.numel()} values differ; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms per {STREAMS}-frame launch; bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        check(got.shape == want.shape and differ == 0, f"{name} disagrees with plain")
+        results[name] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, **b)
+
+        name = "warp_band_f32" + suffix
+        size_in = tuple(ys.shape[-2:])
+        whole = warp_kernel.warp_frame_f32(ys[0], rots[0], oc, ic, size, interp=interp)
+        one = "warp_frame_f32" + suffix
+        if one not in results:  # row 5 in a variant no earlier phase measured
+            want = warp_kernel.warp_planes_f32_plain(ys[:1], rots[0], oc, ic, size,
+                                                     interp=interp)[0]
+            check(torch.equal(whole, want), f"{one} disagrees with plain")
+            results[one] = dict(
+                max_abs_err=0.0,
+                ms=cuda_ms(lambda: warp_kernel.warp_frame_f32(ys[0], rots[0], oc, ic, size,
+                                                              interp=interp), 10),
+                plain_ms=cuda_ms(lambda: warp_kernel.warp_planes_f32_plain(
+                    ys[:1], rots[0], oc, ic, size, interp=interp), 2, 0),
+                **frames_bound(interp, projection, ys[:1], whole, rots[0], ic))
+            log(f"[K1 {one}] {projection} output, {tuple(ys[0].shape)} f32 -> "
+                f"{tuple(whole.shape)}: equal to its plain version; kernel "
+                f"{results[one]['ms']:.3f} ms, plain {results[one]['plain_ms']:.3f} ms; bound "
+                f"{results[one]['bound_ms']:.4f} ms ({results[one]['bound_by']})")
+        band_err, timed = 0.0, {}
+        for n in BAND_SHARDS:
+            rows = warp_kernel.band_tile_rows(size[0], n)
+            bands = []
+            for rank in range(n):
+                args = (ys[0], rots[0], oc, ic, size, n, rank * rows)
+                got = launch_checked(name, lambda: warp_kernel.warp_frame_band_f32(
+                    *args, interp=interp))
+                want = warp_kernel.warp_frame_band_f32_plain(*args, interp=interp)
+                diff = (got - want).abs()
+                band_err = max(band_err, float(diff.max()))
+                check(got.shape == want.shape and int((diff > 0).sum()) == 0,
+                      f"{name} ({n} ranks, rank {rank}) disagrees with plain")
+                bands.append(got)
+            check(torch.equal(torch.cat(bands)[:size[0]], whole),
+                  f"{name}: the {n} bands are not the whole frame")
+            last = (ys[0], rots[0], oc, ic, size, n, (n - 1) * rows)
+            timed[n] = (queued_ms(lambda: warp_kernel.warp_frame_band_f32(
+                *last, interp=interp), 10), cuda_ms(
+                lambda: warp_kernel.warp_frame_band_f32(*last, interp=interp), 10),
+                cuda_ms(lambda: warp_kernel.warp_frame_band_f32_plain(*last, interp=interp), 2, 0),
+                band_bound(interp, projection, ys[0], bands[-1], *last[1:]))
+            ms, events_ms, plain_ms, b = timed[n]
+            log(f"[K1 {name}] {projection} output, {n} ranks of {rows} tile rows: every band "
+                f"equal to its plain version and the {n} together to the whole-frame launch; "
+                f"the last band {tuple(bands[-1].shape)}, {b['src_rows']} of {size_in[0]} "
+                f"source rows reached: kernel {ms:.4f} ms (queued; {events_ms:.4f} ms by "
+                f"CUDA events with the host's time), plain {plain_ms:.3f} ms; bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {b['bound_ms'] / ms:.0%} of it")
+        ms, _, plain_ms, b = timed[BAND_SHARDS[0]]
+        results[name] = dict(max_abs_err=band_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+
+
+def render_clip(dev, w: int, h: int, streams: int, frames: int):
+    """((B, T, H, W) float32 luma, in_cam, out_cam): one shaken synthetic
+    stream per b (the dryrun's clips), rendered on the card."""
+    cams = [SyntheticCamera(width=w, height=h, num_frames=frames, shake=0.006, seed=17 * b + 1)
+            for b in range(streams)]
+    in_cam = cams[0].camera()
+    clip = torch.stack([
+        torch.stack([render_frame(in_cam, r)[0] for r in torch.from_numpy(
+            cam.rotations().astype(np.float32)).to(dev)]) for cam in cams])
+    return clip.to(torch.float32), in_cam, get_output_camera(in_cam, crop_borders=True)
+
+
+def timed_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_parallel(dev, label):
+    """The three phases of ``dryrun_multichip`` through the port's
+    ``parallel/`` package, at world size 1 on the card (an NCCL group
+    over a HashStore), with every launch count at 0 just before and read
+    just after: the pipeline step on a (2, 60) x 1280x960 clip at radius
+    30 (non-identity corrections); the stream batch at STREAMS 4K frames in
+    each of PARALLEL_VARIANTS; the two 2D families' batch warps at
+    STREAMS 4K frames; the spatial warp (one rank) and its bands for 2, 3
+    and 4 ranks launched in turn. Then, outside the count, each result is
+    held to its unsharded counterpart, and the step's kernels at its own
+    shapes to their plain versions. Returns the launch counts."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh()
+        clip, in_cam, out_cam = render_clip(dev, 1280, 960, 2, 60)
+        ys = float_lumas(dev, STREAMS)
+        g = torch.Generator().manual_seed(41)
+        rots = so3.exp(torch.randn((STREAMS, 3), generator=g) * 0.02).to(dev)
+        y8, u8, v8 = (torch.stack(p) for p in zip(*(
+            source_frame(dev, SOURCE, t) for t in range(STREAMS))))
+        sim = torch.tensor([[4.0, -3.0, 0.02, 0.01]] * STREAMS, device=dev) * \
+            torch.linspace(-1.0, 1.0, STREAMS, device=dev)[:, None]
+        mats = torch.from_numpy(similarity.SimilarityWarper.matrices(sim.cpu().numpy())).to(dev)
+        shifts = torch.linspace(-12.5, 12.5, STREAMS * 2, device=dev).reshape(STREAMS, 2)
+        sim_warper = similarity.SimilarityWarper(W, H)
+        for k in cuda_lib.KERNELS.values():
+            k.launches = 0
+        step = ppipeline.build_pipeline_step(mesh, in_cam, out_cam, smooth_radius=30,
+                                             max_corners=PIPE_CORNERS)
+        (warped, corrections), pipe_ms = timed_ms(lambda: step(clip, with_corrections=True))
+        streams_out = {}
+        for interp, projection in PARALLEL_VARIANTS:
+            warper = parallel_warper(dev, projection)
+            streams_out[interp, projection] = timed_ms(
+                lambda: pstreams.warp_streams_kernel_sharded(
+                    ys, rots, warper.out_cam, warper.in_cam, (warper.out_h, warper.out_w),
+                    interp=interp))
+        # The 2D families' batch warps on this rank's streams (no collectives).
+        families = {
+            "similarity": timed_ms(lambda: tuple(map(torch.stack, zip(
+                *sim_warper.warp_yuv_batch(y8, u8, v8, mats))))),
+            "deshake": timed_ms(lambda: tuple(map(torch.stack, zip(*map(
+                deshake.warp_frame_deshake, *(p.to(torch.float32) for p in (y8, u8, v8)),
+                shifts))))),
+        }
+        spatial = {}
+        for interp, projection in PARALLEL_VARIANTS:
+            warper = parallel_warper(dev, projection)
+            oc, ic, size = warper.out_cam, warper.in_cam, (warper.out_h, warper.out_w)
+            spatial[interp, projection, 1] = timed_ms(lambda: pstreams.warp_frame_spatial(
+                ys[0], rots[0], oc, ic, mesh, out_size=size, interp=interp))
+            for n in BAND_SHARDS:
+                rows = warp_kernel.band_tile_rows(size[0], n)
+                spatial[interp, projection, n] = timed_ms(lambda: torch.cat([
+                    warp_kernel.warp_frame_band_f32(ys[0], rots[0], oc, ic, size, n, r * rows,
+                                                    interp=interp)
+                    for r in range(n)])[:size[0]])
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+    finally:
+        dist.destroy_process_group()
+    log(f"[parallel] launches {launches}")
+    for name in PARALLEL_KERNELS:
+        check(launches.get(name, 0) > 0, f"[parallel] kernel {name} was not launched")
+
+    check(warped.shape == (*clip.shape[:2], out_cam.height, out_cam.width)
+          and bool(torch.isfinite(warped).all()), "[parallel] pipeline output is off")
+    ident = warp_kernel.warp_frame_f32(clip[0, 30], torch.eye(3, device=dev), out_cam, in_cam,
+                                       (out_cam.height, out_cam.width))
+    moved = float((warped[0, 30] - ident).abs().mean())
+    log(f"[parallel] {label}: pipeline step {tuple(clip.shape)} radius 30 -> "
+        f"{tuple(warped.shape)} in {pipe_ms:.1f} ms wall "
+        f"({pipe_ms / clip.shape[0] / clip.shape[1]:.2f} ms per frame); "
+        f"mean |warp - undistort| {moved:.2f} grey")
+    check(moved > 0.5, "[parallel] the corrections are the identity")
+    check_pipeline_kernels(clip, corrections, warped, in_cam, out_cam)
+    for (interp, projection), (out, ms) in streams_out.items():
+        warper = parallel_warper(dev, projection)
+        size = (warper.out_h, warper.out_w)
+        same = all(torch.equal(out[b], warp_kernel.warp_frame_f32(
+            ys[b], rots[b], warper.out_cam, warper.in_cam, size, interp=interp))
+            for b in range(STREAMS))
+        log(f"[parallel] stream batch {interp} {projection}: {STREAMS} x 4K -> "
+            f"{tuple(out.shape)} in {ms:.2f} ms wall; each stream equal to its one-frame "
+            f"launch: {same}")
+        check(same, f"[parallel] the {interp} {projection} stream batch differs per stream")
+    for name, ((wy, wu, wv), ms) in families.items():
+        for b in (0, STREAMS - 1):
+            if name == "similarity":
+                want = sim_warper.warp_yuv(y8[b], u8[b], v8[b], mats[b])
+            else:
+                want = deshake.warp_frame_deshake(y8[b].float(), u8[b].float(), v8[b].float(),
+                                                  shifts[b])
+            check(all(torch.equal(g_[b], w_) for g_, w_ in zip((wy, wu, wv), want)),
+                  f"[parallel] {name} stream {b} differs from its unsharded warp")
+        log(f"[parallel] {name} streams: {STREAMS} x 4K -> {tuple(wy.shape)} in {ms:.2f} ms "
+            f"wall; streams 0 and {STREAMS - 1} equal to their unsharded warps")
+    for (interp, projection, n), (out, ms) in spatial.items():
+        warper = parallel_warper(dev, projection)
+        whole = warp_kernel.warp_frame_f32(ys[0], rots[0], warper.out_cam, warper.in_cam,
+                                           (warper.out_h, warper.out_w), interp=interp)
+        check(torch.equal(out, whole), f"[parallel] spatial {interp} {projection} {n} ranks")
+        log(f"[parallel] spatial {interp} {projection}, {n} rank(s): {tuple(out.shape)} in "
+            f"{ms:.2f} ms wall, equal to the whole-frame launch")
+    return launches
+
+
+def check_pipeline_kernels(clip, corrections, warped, in_cam, out_cam):
+    """The pipeline step's kernels at its own shapes, each against its
+    plain version: row 6 on the (B T, 960, 1280) clip by the corrections
+    the step warped with (0 differing values expected); K3 and K2's pairs
+    form on stream 0's sequence as the step tracks it (frame 0 first
+    against itself), with the step's corners, levels and iterations."""
+    size = (out_cam.height, out_cam.width)
+    flat = clip.reshape(-1, *clip.shape[-2:])
+    want = warp_kernel.warp_frames_f32_plain(flat, corrections.reshape(-1, 3, 3), out_cam,
+                                             in_cam, size)
+    diff = (warped.reshape(want.shape) - want).abs()
+    differ = int((diff > 0).sum())
+    log(f"[parallel] row 6 at the step's shapes, {tuple(flat.shape)} -> {tuple(want.shape)}: "
+        f"max |diff| {float(diff.max()):.3g}, {differ} of {want.numel()} values differ from "
+        f"the plain warp by the step's corrections")
+    check(differ == 0, "[parallel] the step's warp disagrees with plain")
+
+    seq = torch.cat([clip[0, :1], clip[0]])
+    staged = lk_kernel.stage_pyramid_pairs(seq, ppipeline.LK_LEVELS)
+    for level, stack in zip(build_pyramid(seq, ppipeline.LK_LEVELS), staged):
+        if stack is not None:
+            check(torch.equal(stack, stage.stage_u8_plain(level, slack=lk_kernel.SLACK_ROWS)),
+                  f"[parallel] stage kernel is not bit-exact at {tuple(level.shape)}")
+    log(f"[parallel] K3 at the step's shapes: {sum(s is not None for s in staged)} levels of "
+        f"{tuple(seq.shape)} bit-exact")
+    pts, valid = detect_corners(seq[:-1], max_corners=PIPE_CORNERS,
+                                min_distance=ppipeline.MIN_DISTANCE, border=ppipeline.BORDER)
+    p_, n_ = pts.shape[:2]
+    band = torch.arange(p_, device=seq.device).repeat_interleave(n_)
+    compare_lk_levels(
+        "parallel K2 lk_level", [None if s is None else (s, s, band) for s in staged],
+        pts.reshape(-1, 2), valid.reshape(-1),
+        lambda s, _, pf, pi: lk_kernel.lk_level(s, pf, pi, ppipeline.LK_ITERS),
+        lambda s, _, pf, pi: lk_kernel.lk_level_plain(s, s, pf, pi, ppipeline.LK_ITERS),
+        iters=ppipeline.LK_ITERS)
+
+
+def phase_native_build():
+    """Whether ``make -C native`` built the libav reader and writer here
+    (the binding builds them at first use); the make's last line if not."""
+    from video_annotator_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    ok = native.native_available() and native.native_writer_available()
+    status = native.build_status
+    how = ("built by make -C native" if status else "found built") if ok else \
+        f"not built: make -C native failed: {status[1] if status else 'not attempted'}"
+    log(f"[native] libav reader and writer {how} ({time.perf_counter() - t0:.1f} s)")
+    return ok, how
+
+
+def phase_native_render(tmp, run, native_ok, why):
+    """Where the native libraries built: the stock render of NATIVE_FRAMES
+    4K frames to .mp4 (libx264 at QP 19, the default encoder), decoded
+    back through the port's NativeVideoSource; frame count and size."""
+    if not native_ok:
+        log(f"[native] the .mp4 render did not run: the native libraries are {why}")
+        return
+    from video_annotator_tpu_torch.io.native import NativeVideoSource
+
+    dest = os.path.join(tmp, "native.mp4")
+    src = mode_source(NATIVE_FRAMES)
+    _, _, times = run("native-mp4", dest, ["--stabilise", "smooth", "--preset", PRESET],
+                      ("warp_luma", "warp_chroma"), source=src, frames=NATIVE_FRAMES)
+    reader = NativeVideoSource(dest)
+    frames = [y.shape for y, _, _ in reader]
+    reader.close()
+    warper = stock_cameras()
+    log(f"[native] {dest}: {len(frames)} frames of {frames[0] if frames else None} decoded "
+        f"back; encode {NATIVE_FRAMES / times['encode']:.2f} fps ({times['encode']:.2f} s)")
+    check(len(frames) == NATIVE_FRAMES and set(frames) == {(warper.out_h, warper.out_w)},
+          "[native] the .mp4 does not decode to the rendered frames")
+    os.remove(dest)
+
+
 def sequential_integrate(omega, sample_ts, frame_ts) -> torch.Tensor:
     """``integrate_gyro`` as a sequential scan in float64 on the host, over
     the same float32 samples: R_{k+1} = R_k exp(w_k dt_k) one step after
@@ -1750,6 +2170,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
     phase_build()
+    native_ok, native_why = phase_native_build()
     results = {}
     phase_warp(dev, results)
     phase_warp_float(dev, results)
@@ -1758,8 +2179,11 @@ def main(argv=None) -> int:
     phase_warp_modes(dev, results)
     phase_stage_lk(dev, results)
     phase_lk_frame(dev, results)
+    phase_warp_parallel(dev, results)
     log(f"[kernels] times above measured on {label}")
-    launches = phase_renders(dev, label)
+    launches = phase_renders(dev, label, native_ok, native_why)
+    for name, count in phase_parallel(dev, label).items():
+        launches[name] = launches.get(name, 0) + count
     phase_tracked_profile(dev, label)
     phase_kalman_window(dev, label)
     phase_2d_parts(dev, label)

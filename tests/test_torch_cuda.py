@@ -510,3 +510,49 @@ def test_whole_frame_launches_stay_bit_exact(cuda):
     got = warp_kernel.warp_planes_f32(plane, rot[0], out_cam, in_cam, (oh, ow))
     assert torch.equal(got, warp_kernel.warp_planes_f32_plain(plane, rot[0], out_cam, in_cam,
                                                               (oh, ow)))
+
+
+@pytest.mark.parametrize("interp,projection", [("bilinear", "rect"), ("bicubic", "rect"),
+                                               ("lanczos", "rect"), ("bilinear", "stereographic"),
+                                               ("bicubic", "equirect")])
+def test_frame_batch_and_band_kernels_match_plain(cuda, interp, projection):
+    """K1's float frame batch (row 6) and band (row 9) against their plain
+    versions bit for bit, each launch counted under its own object, and
+    the bands of 2, 3 and 4 ranks, concatenated and cropped, equal to the
+    one-frame float launch (row 5) bit for bit."""
+    from video_annotator_tpu_torch.camera import CameraModel, camera_from_dfov
+
+    in_cam = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (320, 240))
+    out_cam = get_output_camera(in_cam, zoom=1 / 1.2)
+    if projection != "rect":
+        out_cam = camera_from_dfov(120.0, (out_cam.width, out_cam.height),
+                                   CameraModel(projection))
+    size = (out_cam.height, out_cam.width)
+    g = torch.Generator().manual_seed(9)
+    frames = torch.randint(0, 256, (5, 240, 320), generator=g).to(torch.float32).to(cuda)
+    rots = so3.exp(torch.randn((5, 3), generator=g) * 0.03).to(cuda)
+    suffix = warp_kernel.variant(out_cam, interp, None)
+    batch = warp_kernel.mode_kernel(warp_kernel.WARP_FRAMES_F32, suffix) if suffix \
+        else warp_kernel.WARP_FRAMES_F32
+    band = warp_kernel.mode_kernel(warp_kernel.WARP_BAND_F32, suffix) if suffix \
+        else warp_kernel.WARP_BAND_F32
+    before = batch.launches
+    got = warp_kernel.warp_frames_f32(frames, rots, out_cam, in_cam, size, interp=interp)
+    assert batch.launches == before + 1
+    want = warp_kernel.warp_frames_f32_plain(frames, rots, out_cam, in_cam, size, interp=interp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    whole = warp_kernel.warp_frame_f32(frames[0], rots[0], out_cam, in_cam, size, interp=interp)
+    assert torch.equal(got[0], whole)
+    for n in (2, 3, 4):
+        rows = warp_kernel.band_tile_rows(size[0], n)
+        bands = []
+        for rank in range(n):
+            before = band.launches
+            b = warp_kernel.warp_frame_band_f32(frames[0], rots[0], out_cam, in_cam, size, n,
+                                                rank * rows, interp=interp)
+            assert band.launches == before + 1
+            assert torch.equal(b, warp_kernel.warp_frame_band_f32_plain(
+                frames[0], rots[0], out_cam, in_cam, size, n, rank * rows, interp=interp))
+            bands.append(b)
+        assert torch.equal(torch.cat(bands)[:size[0]], whole)

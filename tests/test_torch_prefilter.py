@@ -117,7 +117,8 @@ def test_mip_levels_match_the_kernel():
     assert re.search(r"constexpr int MAX_LEVELS = (\d+);", src).group(1) == str(mip.MIP_LEVELS + 1)
     groups = re.findall(r"const void\* lv(\d),\s+long long lv\1_plane,\s+int lv\1_pitch", src)
     assert groups == [str(i) for i in range(1, mip.MIP_LEVELS + 1)]
-    assert len(warp_kernel._MODES_ARGTYPES) == 29 + 5 * mip.MIP_LEVELS
+    # 29 arguments, the level groups, then the band's rows and tile-row offset
+    assert len(warp_kernel._MODES_ARGTYPES) == 29 + 5 * mip.MIP_LEVELS + 2
     levels = mip.TileLevels(torch.full((2, 1), mip.MIP_LEVELS + 1, dtype=torch.uint8),
                             mip.MIP_LEVELS + 1)
     with pytest.raises(ValueError, match="mip levels up to"):

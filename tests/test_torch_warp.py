@@ -283,3 +283,116 @@ def test_time_warp_builds_needs_a_card(capsys):
         pytest.skip("the refusal is for a host without a card")
     assert time_warp_builds.main([]) == 1
     assert "CUDA" in capsys.readouterr().err
+
+
+def row6_row9_case(interp, projection):
+    """(jin, jout, plan) at 320x240: the stock fisheye to its auto-fit
+    rectilinear output, or to a stereographic one (the ray grid)."""
+    jin, jout = cameras(320, 240, True)
+    if projection != "rect":
+        from video_annotator_tpu.camera import CameraModel, camera_from_dfov
+
+        jout = camera_from_dfov(120.0, (jout.width, jout.height), CameraModel(projection))
+    return jin, jout, plan_warp(jout, jin, max_correction_deg=6.0, interp=interp)
+
+
+ROW6_ROW9_CASES = [("bilinear", "rect"), ("bicubic", "rect"), ("bilinear", "stereographic")]
+
+
+@pytest.mark.parametrize("interp,projection", ROW6_ROW9_CASES)
+def test_warp_frames_f32_matches_pallas_interpret(interp, projection):
+    """Row 6's plain version against ``warp_frames_pallas`` in interpret
+    mode (the TPU kernel of ``_build_warp_batch_fn``), and frame by frame
+    against the one-frame float warp."""
+    from video_annotator_tpu.ops.warp_pallas import warp_frames_pallas
+
+    jin, jout, plan = row6_row9_case(interp, projection)
+    rng = np.random.default_rng(21)
+    frames = np.round(rng.uniform(0, 255, size=(3, 240, 320))).astype(np.float32)
+    rots = rotations(3, 22)
+    want = np.asarray(warp_frames_pallas(jnp.asarray(frames), jnp.asarray(rots), plan,
+                                         jout, jin, interpret=True))
+    size = (jout.height, jout.width)
+    got = warp_kernel.warp_frames_f32(torch.from_numpy(frames), torch.from_numpy(rots),
+                                      to_port(jout), to_port(jin), size, interp=interp)
+    assert got.shape == (3, *size) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=FLOAT_ATOL)
+    for t in range(3):
+        one = warp_kernel.warp_frame_f32(torch.from_numpy(frames[t]), torch.from_numpy(rots[t]),
+                                         to_port(jout), to_port(jin), size, interp=interp)
+        torch.testing.assert_close(got[t], one, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("interp,projection,nshards", [
+    ("bilinear", "rect", 2), ("bilinear", "rect", 3), ("bilinear", "rect", 4),
+    ("bicubic", "rect", 3), ("bilinear", "stereographic", 3)])
+def test_warp_frame_band_f32_matches_pallas_interpret(interp, projection, nshards):
+    """Row 9's plain version for every band against
+    ``warp_frame_band_pallas`` in interpret mode over the rows inside the
+    output, and the bands, concatenated and cropped, equal the whole
+    frame's float warp."""
+    from video_annotator_tpu.ops.warp_pallas import warp_frame_band_pallas
+
+    jin, jout, plan = row6_row9_case(interp, projection)
+    rng = np.random.default_rng(23)
+    frame = np.round(rng.uniform(0, 255, size=(240, 320))).astype(np.float32)
+    rot = rotations(1, 24)[0]
+    size = (jout.height, jout.width)
+    ny = warp_plain.num_tile_rows(size[0])
+    ny_band = warp_kernel.band_tile_rows(size[0], nshards)
+    assert ny_band == -(-ny // nshards) and plan.grid[0] == ny
+    bands = []
+    for rank in range(nshards):
+        off = rank * ny_band
+        got = warp_kernel.warp_frame_band_f32(
+            torch.from_numpy(frame), torch.from_numpy(rot), to_port(jout), to_port(jin),
+            size, nshards, off, interp=interp)
+        assert got.shape == (ny_band * 8, size[1]) and got.dtype == torch.float32
+        want = np.asarray(warp_frame_band_pallas(jnp.asarray(frame), jnp.asarray(rot), plan,
+                                                 jout, jin, nshards, off, interpret=True))
+        # Rows inside the output and outside the overflow tiles: those
+        # are crop fodder, and the ray-grid Pallas kernel leaves them
+        # unlike its final tile row (the port recomputes that row).
+        own = torch.arange(ny_band).repeat_interleave(8) + off < ny
+        inside = ((warp_kernel.band_rows(size[0], nshards, off) < size[0]) & own).numpy()
+        np.testing.assert_allclose(got.numpy()[inside], want[inside], atol=FLOAT_ATOL)
+        bands.append(got)
+    whole = warp_kernel.warp_frame_f32(torch.from_numpy(frame), torch.from_numpy(rot),
+                                       to_port(jout), to_port(jin), size, interp=interp)
+    torch.testing.assert_close(torch.cat(bands)[:size[0]], whole, rtol=0, atol=0)
+
+
+def test_band_clamps_past_the_last_tile_row():
+    """A band that starts past the frame's last tile row repeats it, and
+    the last tile's rows past out_h are computed from the map."""
+    jin, jout = cameras(320, 240, True)
+    size = (jout.height, jout.width)
+    ny = warp_plain.num_tile_rows(size[0])
+    frame = torch.from_numpy(np.round(np.random.default_rng(25).uniform(
+        0, 255, size=(240, 320))).astype(np.float32))
+    rot = torch.from_numpy(rotations(1, 26)[0])
+    last = warp_kernel.warp_frame_band_f32(frame, rot, to_port(jout), to_port(jin), size,
+                                           ny, ny - 1)
+    past = warp_kernel.warp_frame_band_f32(frame, rot, to_port(jout), to_port(jin), size,
+                                           ny, ny + 3)
+    torch.testing.assert_close(past, last, rtol=0, atol=0)
+    padded = warp_kernel.warp_frame_f32(frame, rot, to_port(jout), to_port(jin),
+                                        (ny * 8, size[1]))
+    torch.testing.assert_close(last, padded[-8:], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("call", [
+    lambda f, r, o, i: warp_kernel.warp_frames_f32(f[0], r, o, i, (8, 8)),  # one plane
+    lambda f, r, o, i: warp_kernel.warp_frames_f32(f, r[:1], o, i, (8, 8)),  # 1 rotation
+    lambda f, r, o, i: warp_kernel.warp_frames_f32(f.to(torch.uint8), r, o, i, (8, 8)),
+    lambda f, r, o, i: warp_kernel.warp_frame_band_f32(f, r[0], o, i, (8, 8), 2, 0),
+    lambda f, r, o, i: warp_kernel.warp_frame_band_f32(f[0], r, o, i, (8, 8), 2, 0),
+    lambda f, r, o, i: warp_kernel.warp_frame_band_f32(f[0], r[0], o, i, (8, 8), 0, 0),
+    lambda f, r, o, i: warp_kernel.warp_frame_band_f32(f[0], r[0], o, i, (8, 8), 2, -1),
+])
+def test_frames_and_band_reject_bad_operands(call):
+    jin, jout = cameras(64, 48, False)
+    frames = torch.zeros((2, 48, 64))
+    rots = torch.eye(3).expand(2, 3, 3)
+    with pytest.raises(ValueError):
+        call(frames, rots, to_port(jout), to_port(jin))

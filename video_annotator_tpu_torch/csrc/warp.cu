@@ -12,6 +12,11 @@
 //       output, not rounded                             -> vat_warp_f32, P = 1
 //   _build_warp_planes_fn :1957     -- P planes of one frame sharing one
 //       map (batched="planes", border=128 for chroma)   -> vat_warp_f32, P > 1
+//   _build_warp_batch_fn :1860      -- T float planes, one 3x3 per frame,
+//       float32 output (batched=True)                   -> vat_warp_f32, T > 1
+//   _build_warp_band_fn :2303       -- output tile rows [off, off + ny_band)
+//       of one float frame, the row index clamped to the last tile row
+//       (batched="band", :983-993, :1104-1107)          -> vat_warp_f32_band
 // and the rolling-shutter mode of each of them (_make_kernel(rs=True),
 // :925-927, :1142-1149): one 3x3 per 8-row output tile row instead of one
 // per frame -> the same entries with ny > 0. Output row y of frame t then
@@ -35,6 +40,18 @@
 // a rotation between real cameras, or a homogeneous pixel matrix between
 // identity pinhole cameras (f = 1, c = 0), where the "ray" is the pixel
 // coordinate and vz is exactly 1.
+//
+// The frame batch (row 6) and the band (row 9) are kernels of their own
+// (warp_f32_batch_kernel, warp_f32_band_kernel), so the one-frame float
+// kernel is instruction for instruction what it was without them: the
+// batch takes its frame from blockIdx.z and its 3x3 at rot + 9 t, as the
+// uint8 kernel does; the band maps its block row b to the global tile
+// row min(b + off, ny - 1), so the overflow tiles of a last band that
+// ceil(ny / nshards) overshoots recompute the final tile row, and it
+// computes every row of a tile, those past out_h included (the caller
+// crops them). The TPU build capped a dispatch at max_t frames to fit its
+// scalar memory (warp_pallas.py:1911-1923); this kernel prefetches no
+// metadata and takes any T.
 //
 // K1's 4-tap, ray-grid and per-tile mip modes are csrc/warp_modes.cu; the
 // helpers the two sources share (the camera parameters, the per-tile-row
@@ -178,6 +195,37 @@ __global__ void warp_f32_kernel(const float* __restrict__ src,
   }
 }
 
+// (T, in_h, in_w) float32 -> (T, out_h, out_w) float32: frame t =
+// blockIdx.z under its own 3x3 at rot + 9 t; neither rounded nor clamped.
+__global__ void warp_f32_batch_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                                      const float* __restrict__ rot, WarpParams p) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int t = blockIdx.z;
+  if (x >= p.out_w || y >= p.out_h) return;
+
+  float sx, sy;
+  const bool valid = source_coords(p, rot + t * 9, x, y, &sx, &sy);
+  const size_t in_plane = (size_t)p.in_h * p.in_w;
+  float* out = dst + (size_t)t * p.out_h * p.out_w + (size_t)y * p.out_w + x;
+  *out = valid ? Taps(p, sx, sy).sample(src + t * in_plane, p.border) : p.border;
+}
+
+// One (in_h, in_w) float32 frame -> (gridDim.y * 8, out_w) float32: block
+// row b renders global tile row min(b + off, ny - 1), all 8 of its rows.
+__global__ void warp_f32_band_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                                     const float* __restrict__ rot, WarpParams p, int ny,
+                                     int off) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int gy = min((int)blockIdx.y + off, ny - 1) * TILE_ROWS + (int)threadIdx.y;
+  if (x >= p.out_w) return;
+
+  float sx, sy;
+  const bool valid = source_coords(p, rot, x, gy, &sx, &sy);
+  dst[(size_t)y * p.out_w + x] = valid ? Taps(p, sx, sy).sample(src, p.border) : p.border;
+}
+
 // The launches by plane count, for one rotation mode.
 template <bool RS>
 bool launch_u8(int nplanes, dim3 grid, dim3 block, cudaStream_t s, const uint8_t* in,
@@ -224,7 +272,9 @@ extern "C" int vat_warp_u8(const void* src, void* dst, const void* rot, int t,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int vat_warp_f32(const void* src, void* dst, const void* rot,
+// t frames: 1 for the planes of one frame (rows 5, 7), else a stack of t
+// single planes under one 3x3 each (row 6: nplanes 1, ny 0).
+extern "C" int vat_warp_f32(const void* src, void* dst, const void* rot, int t,
                             int nplanes, int in_h, int in_w, int out_h, int out_w,
                             int ny, float ofx, float ofy, float ocx, float ocy, float ifx,
                             float ify, float icx, float icy, float k1, float k2,
@@ -232,15 +282,40 @@ extern "C" int vat_warp_f32(const void* src, void* dst, const void* rot,
                             void* stream) {
   WarpParams p{1.0f / ofx, 1.0f / ofy, ocx, ocy, ifx, ify, icx, icy, k1, k2, k3, k4,
                border, in_w, in_h, out_w, out_h, fisheye};
-  if (ny < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (ny < 0 || t < 1 || (t > 1 && (nplanes != 1 || ny != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(32, TILE_ROWS);
-  const dim3 grid((out_w + 31) / 32, (out_h + TILE_ROWS - 1) / TILE_ROWS, 1);
+  const dim3 grid((out_w + 31) / 32, (out_h + TILE_ROWS - 1) / TILE_ROWS, t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* in = static_cast<const float*>(src);
   float* out = static_cast<float*>(dst);
   const float* r = static_cast<const float*>(rot);
+  if (t > 1) {
+    warp_f32_batch_kernel<<<grid, block, 0, s>>>(in, out, r, p);
+    return static_cast<int>(cudaGetLastError());
+  }
   const bool launched = ny > 0 ? launch_f32<true>(nplanes, grid, block, s, in, out, r, p, ny)
                                : launch_f32<false>(nplanes, grid, block, s, in, out, r, p, ny);
   if (!launched) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Tile rows [off, off + ny_band) of one frame's ny = ceil(out_h / 8), each
+// clamped to ny - 1, into (ny_band * 8, out_w) float32.
+extern "C" int vat_warp_f32_band(const void* src, void* dst, const void* rot, int in_h,
+                                 int in_w, int out_h, int out_w, int ny_band, int off,
+                                 float ofx, float ofy, float ocx, float ocy, float ifx,
+                                 float ify, float icx, float icy, float k1, float k2,
+                                 float k3, float k4, int fisheye, float border,
+                                 void* stream) {
+  WarpParams p{1.0f / ofx, 1.0f / ofy, ocx, ocy, ifx, ify, icx, icy, k1, k2, k3, k4,
+               border, in_w, in_h, out_w, out_h, fisheye};
+  const int ny = (out_h + TILE_ROWS - 1) / TILE_ROWS;
+  if (ny_band < 1 || off < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(32, TILE_ROWS);
+  const dim3 grid((out_w + 31) / 32, ny_band, 1);
+  warp_f32_band_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src), static_cast<float*>(dst),
+      static_cast<const float*>(rot), p, ny, off);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,6 +32,14 @@
 // thread. The bilinear, rectilinear, whole-map kernels of csrc/warp.cu are
 // untouched by these modes.
 //
+// The same modes serve the float frame batch of _build_warp_batch_fn
+// (:1860, row 6: t > 1 float frames, one plane each, one 3x3 per frame,
+// the frame at blockIdx.z as in the uint8 mode) and the band of
+// _build_warp_band_fn (:2303, row 9): a template argument BAND maps block
+// row b to global tile row min(b + off, ny - 1) of the frame, whose
+// out_h is then the padded ny * 8 rows the ray grid has; every other
+// instantiation computes what it computed before.
+//
 // Every product and sum runs unfused in the order of the plain version
 // (ops/warp_plain.py, ops/mip.py), so the two agree bit for bit on the
 // card; lanczos uses sinf, as torch.sin does there.
@@ -69,6 +77,7 @@ struct Modes {
   const uint8_t* levels;  // (ceil(out_h / 8), levels_nx), or null: no mip
   int levels_nx;
   Level level[MAX_LEVELS];
+  int band_ny, band_off;  // BAND: the frame's tile rows, the band's first
 };
 
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
@@ -160,14 +169,21 @@ __device__ __forceinline__ float sample4(const Level& lv, size_t plane, int xi, 
 
 // (T, NPLANES, in_h, in_w) planes (level 0 of `m`) -> (T, NPLANES, out_h,
 // out_w) of type T: uint8 rounded half to even and clamped, or float32 as
-// it is. One 3x3 per frame, or per tile row with RS.
-template <typename T, int NPLANES, bool RS, int INTERP>
+// it is. One 3x3 per frame, or per tile row with RS. With BAND, one frame
+// to (gridDim.y * 8, out_w): output row yo holds global row y.
+template <typename T, int NPLANES, bool RS, int INTERP, bool BAND = false>
 __global__ void warp_modes_kernel(T* __restrict__ dst, const float* __restrict__ rot,
                                   WarpParams p, int ny, Modes m) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int yo = blockIdx.y * blockDim.y + threadIdx.y;
   const int t = blockIdx.z;
-  if (x >= p.out_w || y >= p.out_h) return;
+  int y = yo;
+  if constexpr (BAND) {
+    y = min((int)blockIdx.y + m.band_off, m.band_ny - 1) * TILE_ROWS + (int)threadIdx.y;
+    if (x >= p.out_w) return;
+  } else {
+    if (x >= p.out_w || y >= p.out_h) return;
+  }
 
   const float* r = row_rotation<RS>(ny, rot, t);
   float vx, vy, vz;
@@ -194,7 +210,7 @@ __global__ void warp_modes_kernel(T* __restrict__ dst, const float* __restrict__
                      sy < (float)p.in_h + PAD && vz > 1e-6f;
 
   const size_t out_plane = (size_t)p.out_h * p.out_w;
-  T* out = dst + (size_t)t * NPLANES * out_plane + (size_t)y * p.out_w + x;
+  T* out = dst + (size_t)t * NPLANES * out_plane + (size_t)yo * p.out_w + x;
   if (!valid) {
 #pragma unroll
     for (int pl = 0; pl < NPLANES; ++pl) store(out + pl * out_plane, p.border);
@@ -277,6 +293,27 @@ bool launch_planes(int nplanes, int interp, dim3 grid, dim3 block, cudaStream_t 
   return false;
 }
 
+// The band: one float plane, one 3x3, no mip; band_rows block rows.
+bool launch_band(int interp, int band_rows, cudaStream_t s, void* dst, const float* r,
+                 const WarpParams& p, const Modes& m) {
+  const dim3 block(32, TILE_ROWS);
+  const dim3 grid((p.out_w + 31) / 32, band_rows, 1);
+  float* out = static_cast<float*>(dst);
+  switch (interp) {
+    case BILINEAR:
+      warp_modes_kernel<float, 1, false, BILINEAR, true><<<grid, block, 0, s>>>(out, r, p, 0, m);
+      return true;
+    case BICUBIC:
+      warp_modes_kernel<float, 1, false, BICUBIC, true><<<grid, block, 0, s>>>(out, r, p, 0, m);
+      return true;
+    case LANCZOS:
+      warp_modes_kernel<float, 1, false, LANCZOS, true><<<grid, block, 0, s>>>(out, r, p, 0, m);
+      return true;
+    default:
+      return false;
+  }
+}
+
 template <typename T>
 bool launch(int nplanes, int interp, int t, int ny, cudaStream_t s, void* dst,
             const float* r, const WarpParams& p, const Modes& m) {
@@ -289,11 +326,13 @@ bool launch(int nplanes, int interp, int t, int ny, cudaStream_t s, void* dst,
 
 }  // namespace
 
-// `f32`: float32 planes in and out (t must be 1), else uint8. `interp`: 0
-// bilinear, 1 bicubic, 2 lanczos. `rays`: null for a rectilinear output.
-// `levels`: null without mip; levels 1 and 2 as (base, elements between
-// planes, row pitch, rows, columns), a null base for a level the map
-// never names.
+// `f32`: float32 planes in and out, else uint8; t > 1 float frames take
+// one plane each. `interp`: 0 bilinear, 1 bicubic, 2 lanczos. `rays`: null
+// for a rectilinear output. `levels`: null without mip; levels 1 and 2 as
+// (base, elements between planes, row pitch, rows, columns), a null base
+// for a level the map never names. `band_rows` > 0: the band of one float
+// plane, tile rows [band_off, band_off + band_rows) of the frame's
+// ceil(out_h / 8), out_h the ray grid's padded rows.
 extern "C" int vat_warp_modes(int f32, const void* src, void* dst, const void* rot, int t,
                               int nplanes, int in_h, int in_w, int out_h, int out_w, int ny,
                               float ofx, float ofy, float ocx, float ocy, float ifx, float ify,
@@ -302,19 +341,25 @@ extern "C" int vat_warp_modes(int f32, const void* src, void* dst, const void* r
                               const void* levels, int levels_nx, const void* lv1,
                               long long lv1_plane, int lv1_pitch, int lv1_h, int lv1_w,
                               const void* lv2, long long lv2_plane, int lv2_pitch, int lv2_h,
-                              int lv2_w, void* stream) {
+                              int lv2_w, int band_rows, int band_off, void* stream) {
   WarpParams p{1.0f / ofx, 1.0f / ofy, ocx, ocy, ifx, ify, icx, icy, k1, k2, k3, k4,
                border, in_w, in_h, out_w, out_h, fisheye};
-  if (ny < 0 || t < 1 || (f32 && t != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool band = band_rows > 0;
+  if (ny < 0 || t < 1 || (f32 && t > 1 && nplanes != 1) ||
+      (band && (!f32 || t != 1 || nplanes != 1 || ny != 0 || levels != nullptr ||
+                band_off < 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   Modes m{static_cast<const float*>(rays), static_cast<const uint8_t*>(levels), levels_nx,
           {{src, (long long)in_h * in_w, in_w, in_h, in_w},
            {lv1, lv1_plane, lv1_pitch, lv1_h, lv1_w},
-           {lv2, lv2_plane, lv2_pitch, lv2_h, lv2_w}}};
+           {lv2, lv2_plane, lv2_pitch, lv2_h, lv2_w}},
+          (out_h + TILE_ROWS - 1) / TILE_ROWS, band_off};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rot);
   const bool launched =
-      f32 ? launch<float>(nplanes, interp, t, ny, s, dst, r, p, m)
-          : launch<uint8_t>(nplanes, interp, t, ny, s, dst, r, p, m);
+      band  ? launch_band(interp, band_rows, s, dst, r, p, m)
+      : f32 ? launch<float>(nplanes, interp, t, ny, s, dst, r, p, m)
+            : launch<uint8_t>(nplanes, interp, t, ny, s, dst, r, p, m);
   if (!launched) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

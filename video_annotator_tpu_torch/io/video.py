@@ -1,17 +1,23 @@
 """Video reader/writer front-ends yielding planar YUV 4:2:0 numpy frames.
 
-Port of ``video_annotator_tpu/io/video.py`` for the sources and sinks the
-port's path uses:
+Port of ``video_annotator_tpu/io/video.py``:
 
 - ``.y4m``: pure-Python, lossless raw;
 - ``synthetic://...``: the ground-truth generator (``io/synthetic.py``),
   rendered on the device the caller names;
-- anything else: OpenCV's FFMPEG backend, imported only when such a file
-  is opened.
+- anything else decodes through the threaded libav loader of ``native/``
+  (``io/native.py``) when it is built, else through OpenCV's FFMPEG
+  backend;
+- compressed output: the libav encoder names (``libx264`` at QP 19, the
+  default when the native writer is built, ``libx265``, ``mpeg4`` and
+  their aliases) go to the native writer, which also stream-copies the
+  source's audio and GPMF tracks over the trim window; 4-character names
+  go to OpenCV's fourcc writers; any other name (``h264_nvenc``,
+  ``hevc_vaapi``, ...) is piped as y4m to an ``ffmpeg`` binary on PATH.
 
-The threaded libav loader/writer of ``native/`` and the delegated ffmpeg
-encoder are not ported yet (ROADMAP.md); compressed output goes through
-OpenCV's fourcc writers.
+``prefer_native=False`` / ``allow_native=False`` (the CLI's
+``--no-native-io``) route around the native libraries. Where they are
+not built, both directions fall back to OpenCV as the JAX package does.
 """
 
 from __future__ import annotations
@@ -113,16 +119,32 @@ class _CvSource:
         self._cap.release()
 
 
-def open_reader(path: str, start_frame: int = 0, device="cpu"):
+def open_reader(path: str, start_frame: int = 0, device="cpu",
+                prefer_native: bool = True):
     """Open a source; the reader has ``.meta``, ``.start_frame`` (index of
     the first yielded frame) and yields (y, u, v) uint8 numpy planes.
-    ``device`` is where a synthetic source renders its frames."""
+    ``device`` is where a synthetic source renders its frames.
+
+    ``start_frame`` requests a trim seek, honoured exactly by the native
+    loader (keyframe seek and a pts drop window), OpenCV
+    (``CAP_PROP_POS_FRAMES``) and y4m (fixed-size frames). A source that
+    cannot seek reports ``start_frame == 0`` and the caller skips frames.
+    A compressed file goes to the native loader first when
+    ``prefer_native`` and it is built, else to OpenCV."""
     if path.startswith("synthetic://"):
         from video_annotator_tpu_torch.io.synthetic import SyntheticSource
 
         return SyntheticSource.from_uri(path, device=device)
     if path.endswith(".y4m"):
         return _Y4MSource(path, start_frame=start_frame)
+    if prefer_native:
+        from video_annotator_tpu_torch.io.native import NativeVideoSource, native_available
+
+        if native_available():
+            try:
+                return NativeVideoSource(path, start_frame=start_frame)
+            except (FileNotFoundError, RuntimeError, OSError):
+                pass
     return _CvSource(path, start_frame=start_frame)
 
 
@@ -137,7 +159,58 @@ class _Y4MSink:
         self._w.close()
 
 
+class _FfmpegSink:
+    """Encoders this host cannot drive natively (``h264_vaapi``,
+    ``h264_nvenc``, ``hevc_*``): y4m piped into an ``ffmpeg`` binary on
+    PATH that owns the hardware encoder."""
+
+    def __init__(self, path: str, meta: VideoMeta, encoder: str,
+                 qp: int = 19, binary: Optional[str] = None):
+        import shutil
+        import subprocess
+
+        ffmpeg = binary or shutil.which("ffmpeg")
+        if ffmpeg is None:
+            raise ValueError(
+                f"encoder {encoder!r} is not built in (native: libx264/"
+                f"libx265/mpeg4; cv2 fourcc: 4-char names) and no ffmpeg "
+                f"binary is on PATH to delegate to")
+        cmd = [ffmpeg, "-y", "-loglevel", "error"]
+        if "vaapi" in encoder:
+            cmd += ["-vaapi_device", "/dev/dri/renderD128"]
+        cmd += ["-f", "yuv4mpegpipe", "-i", "pipe:0"]
+        if "vaapi" in encoder:
+            cmd += ["-vf", "format=nv12,hwupload"]
+        cmd += ["-c:v", encoder, "-qp", str(qp), path]
+        self._proc = subprocess.Popen(cmd, stdin=subprocess.PIPE)
+        self._path = path
+        self._pipe = y4m_mod.Y4MWriter(self._proc.stdin, meta.width, meta.height, meta.fps)
+
+    def write(self, planes: Planes):
+        try:
+            self._pipe.write(*planes)
+        except BrokenPipeError:
+            self._proc.wait()
+            raise RuntimeError(f"delegated ffmpeg encoder exited early "
+                               f"(rc={self._proc.returncode}) writing {self._path}")
+
+    def close(self):
+        if self._proc is None:
+            return
+        proc, self._proc = self._proc, None
+        try:
+            self._pipe.close()
+        except BrokenPipeError:
+            pass
+        rc = proc.wait()
+        if rc != 0:
+            raise RuntimeError(f"delegated ffmpeg encode of {self._path} failed (rc={rc})")
+
+
 class _CvSink:
+    """OpenCV's FFMPEG writer by fourcc: bitrate-default, no QP, no stream
+    passthrough."""
+
     def __init__(self, path: str, meta: VideoMeta, fourcc: str = "mp4v"):
         import cv2
 
@@ -161,21 +234,65 @@ class _NullSink:
         pass
 
 
+# Encoder names routed to the native libav writer (libx264 at constant
+# QP 19). 4-character fourcc names (mp4v, avc1, ...) go through OpenCV.
+_NATIVE_ENCODERS = {"libx264", "x264", "h264", "libx265", "hevc", "mpeg4"}
+# Fourccs and common names to libav encoder names: the C side's lookup
+# would otherwise miss them and substitute libx264.
+_NATIVE_ALIASES = {"x264": "libx264", "h264": "libx264", "avc1": "libx264",
+                   "mp4v": "mpeg4", "hevc": "libx265", "hvc1": "libx265",
+                   "x265": "libx265"}
+
+
 def default_encoder() -> str:
-    """OpenCV's mp4v: the native libx264 writer is not ported yet."""
-    return "mp4v"
+    """``libx264`` (QP 19) when the native writer is built, as in the JAX
+    package; OpenCV's ``mp4v`` otherwise."""
+    from video_annotator_tpu_torch.io.native import native_writer_available
+
+    return "libx264" if native_writer_available() else "mp4v"
 
 
-def open_writer(path: Optional[str], meta: VideoMeta, encoder: str = "mp4v"):
+def open_writer(path: Optional[str], meta: VideoMeta, encoder: str = "mp4v",
+                copy_streams_from: Optional[str] = None,
+                trim_start: float = 0.0, trim_end: float = -1.0,
+                allow_native: bool = True):
     """Open a frame sink: ``None`` discards, ``.y4m`` writes raw, anything
-    else encodes through an OpenCV 4-character fourcc."""
+    else encodes (module docstring). ``copy_streams_from`` stream-copies
+    that file's audio and GPMF data tracks into the output, restricted to
+    the ``[trim_start, trim_end)`` source window in seconds: the native
+    writer only, which also takes a fourcc that has a libav name when
+    there are streams to copy."""
     if path is None:
         return _NullSink()
     if path.endswith(".y4m"):
         return _Y4MSink(path, meta)
-    if len(encoder) != 4:
-        raise NotImplementedError(
-            f"encoder {encoder!r} needs the native libav writer, which is not "
-            "ported to the torch package yet (ROADMAP.md); use a .y4m output "
-            "or a 4-character OpenCV fourcc")
-    return _CvSink(path, meta, fourcc=encoder)
+    native_name = _NATIVE_ALIASES.get(
+        encoder, encoder if encoder in _NATIVE_ENCODERS else None)
+    if allow_native and (encoder in _NATIVE_ENCODERS
+                         or (copy_streams_from is not None and native_name is not None)):
+        from video_annotator_tpu_torch.io.native import (
+            NativeVideoWriter,
+            native_writer_available,
+        )
+
+        try:
+            if native_writer_available():
+                return NativeVideoWriter(path, meta, encoder=native_name, qp=19,
+                                         copy_streams_from=copy_streams_from,
+                                         trim_start=trim_start, trim_end=trim_end)
+        except (RuntimeError, OSError) as e:
+            import sys
+
+            print(f"warning: native writer unavailable for {path} ({e}); falling "
+                  "back to cv2 (bitrate-default, no stream passthrough)",
+                  file=sys.stderr)
+    if encoder not in _NATIVE_ENCODERS and len(encoder) != 4:
+        # Neither built in nor a fourcc: a hardware encoder name. Delegate
+        # rather than let the C side substitute libx264.
+        if copy_streams_from is not None:
+            import sys
+
+            print(f"warning: --encoder {encoder!r} is not a built-in codec; "
+                  "encoding WITHOUT audio/GPMF stream passthrough", file=sys.stderr)
+        return _FfmpegSink(path, meta, encoder)
+    return _CvSink(path, meta, fourcc=encoder if len(encoder) == 4 else "mp4v")

@@ -14,10 +14,17 @@ Port of the TPU warp's entry points in
 - :func:`warp_frame_f32`: one float plane to float32, not rounded,
   ``warp_frame_pallas`` (``_build_warp_fn``, :1803);
 - :func:`warp_planes_f32`: up to four float planes of one frame sharing
-  one map, ``warp_planes_pallas`` (``_build_warp_planes_fn``, :1957).
+  one map, ``warp_planes_pallas`` (``_build_warp_planes_fn``, :1957);
+- :func:`warp_frames_f32`: T float planes to float32, one 3x3 per frame,
+  ``warp_frames_pallas`` (``_build_warp_batch_fn``, :1860), the stream
+  batch of ``parallel/streams.py``;
+- :func:`warp_frame_band_f32`: output tile rows [off, off + ceil(ny /
+  nshards)) of one float frame, the row index clamped to the last tile
+  row, ``warp_frame_band_pallas`` (``_build_warp_band_fn``, :2303), the
+  per-rank body of the spatial warp.
 
-Every entry also takes the rolling-shutter form of its rotation, one 3x3
-per 8-row output tile row (``_make_kernel(rs=True)``, :925-927,
+Every entry but the last two also takes the rolling-shutter form of its
+rotation, one 3x3 per 8-row output tile row (``_make_kernel(rs=True)``, :925-927,
 :1142-1149): a (ny, 3, 3) stack where it took one (3, 3) matrix, a
 (T, ny, 3, 3) stack where it took (T, 3, 3), as the JAX entries do
 (``jnp.ndim(rotation) == 3`` at :2003, :2135, :2376; ``== 4`` at :2261).
@@ -27,7 +34,9 @@ is gathered from the luma one before the launch
 objects of their own (``*_rs``).
 
 And every entry takes K1's three other modes (``csrc/warp_modes.cu``),
-alone or together, with or without per-tile-row rotations:
+alone or together, with or without per-tile-row rotations (the frame
+batch and the band: the 4-tap and ray-grid modes, as the TPU builders
+of rows 6 and 9 take them):
 
 - ``interp="bicubic"|"lanczos"``: 4x4 taps (``plan.taps == 4``);
 - an output camera that is not rectilinear: the ray grid, (3, H, W)
@@ -78,7 +87,9 @@ from video_annotator_tpu_torch.ops.mip import (
 from video_annotator_tpu_torch.ops.stage import stage_u8
 from video_annotator_tpu_torch.ops.warp_plain import (
     INTERPS,
+    TILE_ROWS,
     compute_warp_map,
+    map_rays,
     num_tile_rows,
     ray_grid,
     sample,
@@ -89,12 +100,13 @@ _MODES_SOURCE = "video_annotator_tpu_torch/csrc/warp_modes.cu"
 _PALLAS = "video_annotator_tpu/ops/warp_pallas.py"
 _CAMERA_ARGTYPES = [ctypes.c_float] * 12 + [ctypes.c_int, ctypes.c_float]
 _U8_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + _CAMERA_ARGTYPES
-_F32_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + _CAMERA_ARGTYPES
+_F32_ARGTYPES = _U8_ARGTYPES  # (src, dst, rot, t, planes, in_h, in_w, out_h, out_w, ny)
+_BAND_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + _CAMERA_ARGTYPES
 _LEVEL_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3
 _MODES_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                    + _CAMERA_ARGTYPES
                    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                   + _LEVEL_ARGTYPES * MIP_LEVELS)
+                   + _LEVEL_ARGTYPES * MIP_LEVELS + [ctypes.c_int] * 2)
 
 
 def _kernel(name: str, symbol: str, argtypes, line: int) -> cuda_lib.CudaKernel:
@@ -117,6 +129,9 @@ WARP_FRAME_F32_RS = _kernel("warp_frame_f32_rs", "vat_warp_f32", _F32_ARGTYPES, 
 WARP_PLANES_F32_RS = _kernel("warp_planes_f32_rs", "vat_warp_f32", _F32_ARGTYPES, 1939)
 WARP_YUV_LUMA_RS = _kernel("warp_yuv_luma_rs", "vat_warp_u8", _U8_ARGTYPES, 2036)
 WARP_YUV_CHROMA_RS = _kernel("warp_yuv_chroma_rs", "vat_warp_u8", _U8_ARGTYPES, 2061)
+# _build_warp_batch_fn and _build_warp_band_fn (rows 6 and 9)
+WARP_FRAMES_F32 = _kernel("warp_frames_f32", "vat_warp_f32", _F32_ARGTYPES, 1860)
+WARP_BAND_F32 = _kernel("warp_band_f32", "vat_warp_f32_band", _BAND_ARGTYPES, 2303)
 # (luma, chroma) kernel objects, by whether the rotations are per tile row.
 BATCH_KERNELS = {False: (WARP_LUMA, WARP_CHROMA),
                  True: (WARP_LUMA_RS, WARP_CHROMA_RS)}
@@ -163,6 +178,21 @@ def ray_grid_planar(out_camera: Camera, out_size: Tuple[int, int],
     reads, computed as :func:`~video_annotator_tpu_torch.ops.warp_plain.
     compute_warp_map` computes them, once per camera, size and device."""
     return ray_grid(out_camera, out_size, device).permute(2, 0, 1).contiguous()
+
+
+@functools.lru_cache(maxsize=2)
+def band_ray_grid(out_camera: Camera, out_size: Tuple[int, int],
+                  device: torch.device) -> torch.Tensor:
+    """(3, ceil(out_h / 8) * 8, W) float32 output rays: the grid of
+    :func:`ray_grid_planar` and below it the rays of the last tile row's
+    rows past ``out_h``, which a band computes and its caller crops."""
+    out_h, out_w = out_size
+    whole = ray_grid_planar(out_camera, out_size, device)
+    pad = num_tile_rows(out_h) * TILE_ROWS - out_h
+    if pad == 0:
+        return whole
+    extra = ray_grid(out_camera, (pad, out_w), device, row0=out_h).permute(2, 0, 1)
+    return torch.cat([whole, extra], dim=1).contiguous()
 
 
 def variant(out_camera: Camera, interp: str, levels: Optional[TileLevels]) -> str:
@@ -275,18 +305,28 @@ def level_stacks(src: torch.Tensor, levels: Optional[TileLevels],
 def launch_modes(src: torch.Tensor, out: torch.Tensor, rotations: torch.Tensor,
                  out_camera: Camera, in_camera: Camera, border: float, interp: str,
                  levels: Optional[TileLevels], stacks: list,
-                 kernel: cuda_lib.CudaKernel) -> None:
+                 kernel: cuda_lib.CudaKernel, frames: bool = False,
+                 band: Optional[Tuple[int, int]] = None) -> None:
     """One launch of ``vat_warp_modes`` on contiguous (T, P, H, W) uint8 or
     (P, H, W) float32 planes into ``out``, the levels' sources in
-    ``stacks`` (:func:`level_stacks`), counted under ``kernel``."""
+    ``stacks`` (:func:`level_stacks`), counted under ``kernel``.
+    ``frames``: the float planes are T frames under (T, 3, 3) rotations.
+    ``band``: (out_h, tile-row offset) of one float plane's band, ``out``
+    holding its rows."""
     f32 = src.dtype == torch.float32
     planes, in_h, in_w = src.shape[-3:]
-    t = 1 if f32 else src.shape[0]
+    t = planes if frames else (1 if f32 else src.shape[0])
+    planes = 1 if frames else planes
     out_h, out_w = out.shape[-2:]
-    ny = _tile_rows(rotations, lead=() if f32 else (t,))
+    band_rows, band_off = 0, 0
+    if band is not None:
+        band_rows, band_off = out_h // TILE_ROWS, band[1]
+        out_h = num_tile_rows(band[0]) * TILE_ROWS
+    ny = _tile_rows(rotations, lead=(t,) if frames or not f32 else ())
     rays = None
     if out_camera.model != CameraModel.RECTILINEAR:
-        rays = ray_grid_planar(out_camera, (out_h, out_w), src.device)
+        rays = (ray_grid_planar(out_camera, (out_h, out_w), src.device) if band is None
+                else band_ray_grid(out_camera, (band[0], out_w), src.device))
     keep = [src, out, rotations] + ([] if rays is None else [rays])
     level_args = [None, 0, 0, 0, 0] * MIP_LEVELS
     level_map, nx = None, 0
@@ -303,7 +343,8 @@ def launch_modes(src: torch.Tensor, out: torch.Tensor, rotations: torch.Tensor,
         t, planes, in_h, in_w, out_h, out_w, ny,
         *_camera_args(out_camera, in_camera, border), INTERPS.index(interp),
         None if rays is None else cuda_lib.ptr(rays),
-        None if level_map is None else cuda_lib.ptr(level_map), nx, *level_args)
+        None if level_map is None else cuda_lib.ptr(level_map), nx, *level_args,
+        band_rows, band_off)
 
 
 def _level_sizes(h: int, w: int, n: int) -> list:
@@ -442,7 +483,7 @@ def _warp_f32(src: torch.Tensor, rotation: torch.Tensor, out_camera: Camera,
     cuda_lib.check_operands(src, rotation, out)
     kernel.launch(
         cuda_lib.ptr(src), cuda_lib.ptr(out), cuda_lib.ptr(rotation),
-        planes, in_h, in_w, out_h, out_w, ny,
+        1, planes, in_h, in_w, out_h, out_w, ny,
         *_camera_args(out_camera, in_camera, border))
     return out
 
@@ -473,3 +514,142 @@ def warp_planes_f32(planes: torch.Tensor, rotation: torch.Tensor,
     of THESE planes (chroma callers gather it, :func:`chroma_row_rotations`)."""
     return _warp_f32(planes, rotation, out_camera, in_camera, out_size, border,
                      PLANES_F32_KERNELS, interp, levels)
+
+
+def _check_f32_frames(frames: torch.Tensor, what: str) -> None:
+    if frames.dim() != 3 or frames.dtype != torch.float32:
+        raise ValueError(f"{what} takes (T, H, W) float32, got "
+                         f"{tuple(frames.shape)} {frames.dtype}")
+
+
+def warp_frames_f32_plain(frames: torch.Tensor, rotations: torch.Tensor,
+                          out_camera: Camera, in_camera: Camera,
+                          out_size: Tuple[int, int], border: float = 0.0,
+                          interp: str = "bilinear") -> torch.Tensor:
+    """Plain torch version of K1's float frame batch: (T, H, W) float32
+    frames, (T, 3, 3) matrices -> (T, out_h, out_w) float32, frame t
+    through its own map, neither rounded nor clamped."""
+    return torch.stack([
+        warp_planes_f32_plain(frames[t][None], rotations[t], out_camera, in_camera,
+                              out_size, border, interp)[0]
+        for t in range(frames.shape[0])])
+
+
+def warp_frames_f32(frames: torch.Tensor, rotations: torch.Tensor,
+                    out_camera: Camera, in_camera: Camera,
+                    out_size: Tuple[int, int], border: float = 0.0,
+                    interp: str = "bilinear") -> torch.Tensor:
+    """Warp (T, H, W) float32 frames, frame t by ``rotations[t]`` (T, 3,
+    3), to (T, out_h, out_w) float32 in one launch, neither rounded nor
+    clamped: ``warp_frames_pallas`` (row 6). Takes the 4-tap and ray-grid
+    modes; no per-tile-row rotations, no mip, as the TPU builder."""
+    _check_f32_frames(frames, "warp_frames_f32")
+    t = frames.shape[0]
+    if tuple(rotations.shape) != (t, 3, 3):
+        raise ValueError(f"rotations must be ({t}, 3, 3), got {tuple(rotations.shape)}")
+    _check_cameras(out_camera, in_camera)
+    suffix = variant(out_camera, interp, None)
+    rotations = rotations.to(device=frames.device, dtype=torch.float32)
+    if frames.device.type == "cpu":
+        return warp_frames_f32_plain(frames, rotations, out_camera, in_camera,
+                                     out_size, border, interp)
+    cuda_lib.check_cuda(frames)
+    frames = frames.contiguous()
+    rotations = rotations.contiguous()
+    _, in_h, in_w = frames.shape
+    out_h, out_w = out_size
+    out = torch.empty((t, out_h, out_w), dtype=torch.float32, device=frames.device)
+    if suffix:
+        launch_modes(frames, out, rotations, out_camera, in_camera, border, interp, None,
+                     [], mode_kernel(WARP_FRAMES_F32, suffix), frames=True)
+        return out
+    cuda_lib.check_operands(frames, rotations, out)
+    WARP_FRAMES_F32.launch(
+        cuda_lib.ptr(frames), cuda_lib.ptr(out), cuda_lib.ptr(rotations),
+        t, 1, in_h, in_w, out_h, out_w, 0, *_camera_args(out_camera, in_camera, border))
+    return out
+
+
+def band_tile_rows(out_h: int, nshards: int) -> int:
+    """Tile rows of each of ``nshards`` bands of an ``out_h``-row output:
+    ceil(ceil(out_h / 8) / nshards)."""
+    return -(-num_tile_rows(out_h) // nshards)
+
+
+def band_rows(out_h: int, nshards: int, tile_row_off: int, device=None) -> torch.Tensor:
+    """The global output rows a band's rows compute: tile row
+    min(off + j, ny - 1), all 8 of its rows, for j < :func:`band_tile_rows`."""
+    ny = num_tile_rows(out_h)
+    tiles = torch.clamp(torch.arange(band_tile_rows(out_h, nshards), device=device)
+                        + tile_row_off, max=ny - 1)
+    return (tiles[:, None] * TILE_ROWS + torch.arange(TILE_ROWS, device=device)).reshape(-1)
+
+
+def warp_frame_band_f32_plain(frame: torch.Tensor, rotation: torch.Tensor,
+                              out_camera: Camera, in_camera: Camera,
+                              out_size: Tuple[int, int], nshards: int,
+                              tile_row_off: int, border: float = 0.0,
+                              interp: str = "bilinear") -> torch.Tensor:
+    """Plain torch version of K1's band: one (H, W) float32 frame, one
+    (3, 3) matrix -> (band_tile_rows * 8, out_w) float32, row j holding
+    global row ``band_rows(...)[j]`` of the whole frame's map."""
+    coords = band_coords(rotation.to(device=frame.device, dtype=torch.float32), out_camera,
+                         in_camera, out_size, nshards, tile_row_off)
+    return sample(frame.to(torch.float32) - border, coords, interp) + border
+
+
+def band_coords(rotation: torch.Tensor, out_camera: Camera, in_camera: Camera,
+                out_size: Tuple[int, int], nshards: int, tile_row_off: int) -> torch.Tensor:
+    """(band_tile_rows * 8, out_w, 2) source coordinates (x, y) of a
+    band's rows, on ``rotation``'s device: what its plain version samples."""
+    out_h, out_w = out_size
+    dev = rotation.device
+    rows = band_rows(out_h, nshards, tile_row_off, dev)
+    padded = (num_tile_rows(out_h) * TILE_ROWS, out_w)
+    if out_camera.model == CameraModel.RECTILINEAR:
+        rays = ray_grid(out_camera, padded, dev)[rows]
+    else:
+        rays = band_ray_grid(out_camera, out_size, dev).permute(1, 2, 0)[rows]
+    return map_rays(rays, rotation, in_camera)
+
+
+def warp_frame_band_f32(frame: torch.Tensor, rotation: torch.Tensor,
+                        out_camera: Camera, in_camera: Camera,
+                        out_size: Tuple[int, int], nshards: int, tile_row_off: int,
+                        border: float = 0.0, interp: str = "bilinear") -> torch.Tensor:
+    """Warp output tile rows [off, off + :func:`band_tile_rows`) of one
+    (H, W) float32 frame by one (3, 3) matrix: ``warp_frame_band_pallas``
+    (row 9). Returns (band_tile_rows * 8, out_w) float32; a band that runs
+    past the last tile row repeats it, and the last tile's rows past
+    ``out_h`` are computed like the others: the caller crops."""
+    if frame.dim() != 2 or frame.dtype != torch.float32:
+        raise ValueError(f"warp_frame_band_f32 takes one (H, W) float32 plane, got "
+                         f"{tuple(frame.shape)} {frame.dtype}")
+    if tuple(rotation.shape) != (3, 3):
+        raise ValueError(f"rotation must be (3, 3), got {tuple(rotation.shape)}")
+    if nshards < 1 or tile_row_off < 0:
+        raise ValueError(f"bad band: nshards {nshards}, tile-row offset {tile_row_off}")
+    _check_cameras(out_camera, in_camera)
+    suffix = variant(out_camera, interp, None)
+    rotation = rotation.to(device=frame.device, dtype=torch.float32)
+    if frame.device.type == "cpu":
+        return warp_frame_band_f32_plain(frame, rotation, out_camera, in_camera, out_size,
+                                         nshards, tile_row_off, border, interp)
+    cuda_lib.check_cuda(frame)
+    frame = frame.contiguous()
+    rotation = rotation.contiguous()
+    in_h, in_w = frame.shape
+    out_h, out_w = out_size
+    rows = band_tile_rows(out_h, nshards)
+    out = torch.empty((rows * TILE_ROWS, out_w), dtype=torch.float32, device=frame.device)
+    if suffix:
+        launch_modes(frame[None], out, rotation, out_camera, in_camera, border, interp,
+                     None, [], mode_kernel(WARP_BAND_F32, suffix),
+                     band=(out_h, int(tile_row_off)))
+        return out
+    cuda_lib.check_operands(frame, rotation, out)
+    WARP_BAND_F32.launch(
+        cuda_lib.ptr(frame), cuda_lib.ptr(out), cuda_lib.ptr(rotation),
+        in_h, in_w, out_h, out_w, rows, int(tile_row_off),
+        *_camera_args(out_camera, in_camera, border))
+    return out

@@ -55,11 +55,17 @@ def compute_warp_map(out_camera: Camera, in_camera: Camera,
         out_size = (out_camera.height, out_camera.width)
     h, w = out_size
     dev = rotation.device
-    rays = ray_grid(out_camera, out_size, dev)
     r = rotation.to(torch.float32)
     if r.dim() == 3:
         rows = torch.clamp(torch.arange(h, device=dev) // TILE_ROWS, max=r.shape[0] - 1)
         r = r[rows].permute(1, 2, 0)[..., None]  # (3, 3, h, 1): per-row entries
+    return map_rays(ray_grid(out_camera, out_size, dev), r, in_camera)
+
+
+def map_rays(rays: torch.Tensor, r: torch.Tensor, in_camera: Camera) -> torch.Tensor:
+    """(..., 2) source coordinates of output ``rays`` (..., 3) rotated by
+    ``r`` (a (3, 3) matrix, or (3, 3) entries that broadcast against the
+    rays' leading dims) and projected through ``in_camera``."""
     rx, ry, rz = rays[..., 0], rays[..., 1], rays[..., 2]
     rotated = torch.stack(
         [r[i, 0] * rx + r[i, 1] * ry + r[i, 2] * rz for i in range(3)], dim=-1)
@@ -70,13 +76,13 @@ def compute_warp_map(out_camera: Camera, in_camera: Camera,
 
 
 def ray_grid(out_camera: Camera, out_size: Tuple[int, int], device,
-             dtype=torch.float32) -> torch.Tensor:
-    """(H, W, 3) output rays of every pixel of an ``out_size`` canvas:
-    what :func:`compute_warp_map` rotates, and what K1 reads for an output
-    camera that is not rectilinear (``_ray_grid_dev``,
-    ``warp_pallas.py:1750-1765``)."""
+             dtype=torch.float32, row0: int = 0) -> torch.Tensor:
+    """(H, W, 3) output rays of every pixel of an ``out_size`` canvas, its
+    rows counted from ``row0``: what :func:`compute_warp_map` rotates, and
+    what K1 reads for an output camera that is not rectilinear
+    (``_ray_grid_dev``, ``warp_pallas.py:1750-1765``)."""
     h, w = out_size
-    ys = torch.arange(h, dtype=dtype, device=device)[:, None].expand(h, w)
+    ys = torch.arange(row0, row0 + h, dtype=dtype, device=device)[:, None].expand(h, w)
     xs = torch.arange(w, dtype=dtype, device=device)[None, :].expand(h, w)
     return out_camera.unproject(torch.stack([xs, ys], dim=-1))
 

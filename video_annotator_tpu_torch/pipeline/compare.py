@@ -199,7 +199,7 @@ def render_compare(source: str, dest: Optional[str], modes: Sequence[str],
         without a frame count is counted by decoding it once."""
         if last < (1 << 30) and meta.num_frames:
             return max(0, last - first)
-        r = open_reader(source, device="cpu")
+        r = open_reader(source, device="cpu", prefer_native=options.native_io)
         n = sum(1 for _ in r)
         r.close()
         return max(0, min(last, n) - first)

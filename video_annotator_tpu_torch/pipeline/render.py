@@ -291,13 +291,32 @@ def _frame_range(meta: VideoMeta, o: RenderOptions):
 def open_trimmed(source: str, o, device):
     """(reader, meta, first, last) with the reader seeked to the trim start
     where the source can seek."""
-    reader = open_reader(source, device=device)
+    reader = open_reader(source, device=device, prefer_native=o.native_io)
     meta = reader.meta
     first, last = _frame_range(meta, o)
     if first > 0 and not source.startswith("synthetic://"):
         reader.close()
-        reader = open_reader(source, start_frame=first, device=device)
+        reader = open_reader(source, start_frame=first, device=device,
+                             prefer_native=o.native_io)
     return reader, meta, first, last
+
+
+def _passthrough_kwargs(source: str, o: RenderOptions) -> dict:
+    """``open_writer``'s stream-copy window and route: a container source
+    has its audio and GPMF tracks copied into the output over the trim
+    window (source-time seconds), as JAX's ``_passthrough_kwargs``
+    (``pipeline/render.py:314-335``) does."""
+    if source.startswith("synthetic://") or source.endswith(".y4m"):
+        return {"allow_native": o.native_io}
+    start = o.start or 0.0
+    if o.end is not None:
+        end = float(o.end)
+    elif o.duration is not None:
+        end = start + float(o.duration)
+    else:
+        end = -1.0
+    return {"copy_streams_from": source, "trim_start": start, "trim_end": end,
+            "allow_native": o.native_io}
 
 
 def upsample_factor(upsample) -> float:
@@ -647,7 +666,7 @@ def _estimate_up0(source: str, t0: float, device) -> Optional[np.ndarray]:
     return estimate_up_direction(omega, ts, accl, accl_ts, t0=t0, device=device)
 
 
-def _gyro_frame_times(source: str, gyro_ts):
+def _gyro_frame_times(source: str, gyro_ts, native: bool = True):
     """(frame_ts, fps, width, height): video frame timestamps, from the
     container's video track when it has one, else a grid at the reader's
     frame rate. Only a telemetry-only file, a container whose tracks
@@ -671,7 +690,7 @@ def _gyro_frame_times(source: str, gyro_ts):
         if tracks and all(track.handler_type != b"vide" for track in tracks):
             n = int((gyro_ts[-1] - gyro_ts[0]) * 30.0) + 1
         else:
-            reader = open_reader(source, device="cpu")
+            reader = open_reader(source, device="cpu", prefer_native=native)
             meta = reader.meta
             reader.close()
             fps = meta.fps
@@ -687,7 +706,7 @@ def _trimmed_frame_times(source: str, gyro_ts, options: RenderOptions,
     analyser honours it. A window given in seconds is counted at the frame
     rate of ``meta``, the encode's reader, where there is one, else at the
     rate of the frame times."""
-    frame_ts, fps, meta_w, meta_h = _gyro_frame_times(source, gyro_ts)
+    frame_ts, fps, meta_w, meta_h = _gyro_frame_times(source, gyro_ts, options.native_io)
     if meta is None:
         meta = VideoMeta(meta_w, meta_h, fps, len(frame_ts))
     first, last = _frame_range(
@@ -931,7 +950,7 @@ def encode(source: str, dest: Optional[str], traj: Trajectory,
                          fps=output_fps(options, meta),
                          num_frames=traj.num_frames)
     sink = open_writer(None if options.no_output else dest, out_meta,
-                       encoder=options.encoder)
+                       encoder=options.encoder, **_passthrough_kwargs(source, options))
     _batched_encode_loop(reader, sink, corrections, warper.warp_yuv_batch,
                          options, prof, first, last, traj.num_frames, dev)
     return out_meta
@@ -1095,7 +1114,7 @@ def encode_2d(source: str, dest: Optional[str], traj: Trajectory,
     out_meta = VideoMeta(width=out_w, height=out_h, fps=output_fps(options, meta),
                          num_frames=traj.num_frames)
     writer = open_writer(None if options.no_output else dest, out_meta,
-                         encoder=options.encoder)
+                         encoder=options.encoder, **_passthrough_kwargs(source, options))
     if traj.kind == "similarity" and dev.type == "cuda":
         pwarper = SimilarityWarper(meta.width, meta.height, interp=options.interp,
                                    out_size=(out_h, out_w))
@@ -1199,7 +1218,7 @@ def render(source: str, dest: Optional[str],
         traj = Trajectory.load(tpath)
     else:
         # No stabilisation: the family's identity trajectory sized to the clip.
-        reader = open_reader(source, device="cpu")
+        reader = open_reader(source, device="cpu", prefer_native=options.native_io)
         meta = reader.meta
         reader.close()
         first, last = _frame_range(meta, options)

@@ -50,6 +50,7 @@ from video_annotator_tpu_torch.pipeline.render import (
     RenderOptions,
     Tracker,
     _estimate_up0,
+    _passthrough_kwargs,
     build_cameras,
     check_ported,
     make_window_corrections,
@@ -122,7 +123,8 @@ def render_streaming(source: str, dest: Optional[str],
     out_meta = VideoMeta(width=warper.out_w, height=warper.out_h,
                          fps=output_fps(options, meta), num_frames=n_expect)
     writer = AsyncFrameWriter(open_writer(None if options.no_output else dest,
-                                          out_meta, encoder=options.encoder))
+                                          out_meta, encoder=options.encoder,
+                                          **_passthrough_kwargs(source, options)))
     batch = max(1, int(options.warp_batch or DEFAULT_WARP_BATCH))
     want_radius = options.stabilise_radius if options.stabilise == "smooth" else 0
 

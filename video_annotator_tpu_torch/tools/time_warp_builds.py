@@ -14,7 +14,8 @@ The package's own source is always timed, as ``tree``; each ``label=path``
 adds another (an earlier commit's ``git show REV:.../warp.cu`` written to a
 file, a variant under trial). A source whose entry points take no ``ny``
 argument (before the per-tile-row mode) is called without it and skipped
-in the per-tile-row cases.
+in the per-tile-row cases; one whose float entry takes no frame count
+``t`` (before the float frame batch) is called without it.
 
 The launches are those of the stock 4K render (3840x2880 fisheye to
 4680x3520 rectilinear): the uint8 batch of 4 frames, luma and chroma, and
@@ -63,12 +64,15 @@ class Build:
         text = source.read_text()
         head = text[text.index('extern "C" int vat_warp_u8'):]
         self.has_ny = re.search(r"\bint ny\b", head[:head.index("{")]) is not None
+        head = text[text.index('extern "C" int vat_warp_f32('):]
+        self.f32_has_t = re.search(r"\bint t\b", head[:head.index("{")]) is not None
         lib = ctypes.CDLL(str(lib_path))
         camera = [ctypes.c_float] * 12 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         ints = 7 if self.has_ny else 6
         self.u8, self.f32 = lib.vat_warp_u8, lib.vat_warp_f32
         self.u8.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * ints + camera
-        self.f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (ints - 1) + camera
+        self.f32.argtypes = ([ctypes.c_void_p] * 3
+                             + [ctypes.c_int] * (ints - 1 + self.f32_has_t) + camera)
         self.u8.restype = self.f32.restype = ctypes.c_int
 
     def launch(self, src, out, rot, ny, cameras, border):
@@ -77,7 +81,7 @@ class Build:
         if src.dtype == torch.uint8:
             fn, shape = self.u8, [src.shape[0]] + shape
         else:
-            fn = self.f32
+            fn, shape = self.f32, [1] * self.f32_has_t + shape
         if self.has_ny:
             shape.append(ny)
         err = fn(cuda_lib.ptr(src), cuda_lib.ptr(out), cuda_lib.ptr(rot), *shape,
@@ -97,7 +101,7 @@ def sass_counts(nvcc: str, lib: Path, label: str, sass_dir) -> dict:
         (sass_dir / f"{label}.sass").write_text(text)
     counts, name = {}, None
     for line in text.splitlines():
-        found = re.search(r"Function : \S*?(warp(?:_f32)?_kernel\w*?)EvPK", line)
+        found = re.search(r"Function : \S*?\d(warp\w*?_kernel\w*?)Ev?PK", line)
         if found:
             name = found.group(1)
             counts[name] = 0
