@@ -38,7 +38,18 @@ the last line is printed):
    concatenated and cropped, equal to the one-frame float launch; a
    band's kernel timed queued behind a sleeping kernel (its launch is
    shorter than its wrapper's host time) and bounded by the source rows
-   its map reaches.
+   its map reaches. The measurement path (rows 11 and 12, K1's
+   diagnostic builds): each probe of ``csrc/roofline.cu`` against its
+   plain version at outer 4 on the inputs that ``tools/roofline.py``
+   launches it on, 1 and 528 tiles (0 differing values, the fused chain
+   too), each of K1's three diagnostic builds against its plain twin on
+   the 4- and 16-frame 4K batches that the tool launches (0 differing
+   values);
+   then, with every launch count at 0 just before and read just after,
+   ``tools/roofline.py``'s measurements (the FMA and gather rates on one
+   SM and card-wide at outer 100 000, K1's 4K luma steady state in each
+   build, its floor and the decomposition) and ``benchtool`` at
+   1920x1440, which must return 0.
 3. Renders through the CLI on 3840x2880 synthetic clips (64 frames unless
    stated), each with every launch count set to 0 just before it and read
    just after:
@@ -139,7 +150,6 @@ import json
 import math
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -147,7 +157,7 @@ import time
 import numpy as np
 import torch
 
-from video_annotator_tpu_torch import cli, so3
+from video_annotator_tpu_torch import benchtool, cli, so3
 from video_annotator_tpu_torch.camera import CameraModel, CameraPreset, get_output_camera
 from video_annotator_tpu_torch.io.synthetic import (
     SyntheticCamera,
@@ -157,7 +167,7 @@ from video_annotator_tpu_torch.io.synthetic import (
 )
 from video_annotator_tpu_torch.io.video import open_reader
 from video_annotator_tpu_torch.models import deshake, similarity
-from video_annotator_tpu_torch.ops import cuda_lib, lk_kernel, stage, warp_kernel
+from video_annotator_tpu_torch.ops import cuda_lib, lk_kernel, roofline_kernel, stage, warp_kernel
 from video_annotator_tpu_torch.ops.corners import detect_corners
 from video_annotator_tpu_torch.ops.affine import fit_similarity
 from video_annotator_tpu_torch.ops.lk import build_pyramid
@@ -178,6 +188,7 @@ from video_annotator_tpu_torch.smoothing.rolling import (
     rs_row_rotations_gyro,
     scan_fractions,
 )
+from video_annotator_tpu_torch.tools import roofline
 
 W, H = 3840, 2880
 FRAMES = 64
@@ -210,22 +221,17 @@ PROFILE_FRAMES = 8
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32
 # FLOP/s outside the tensor cores. A bound is the larger of bytes / rate
 # and operations / rate for the work of one timed call.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = roofline.HBM_BYTES_PER_S
+FP32_OPS_PER_S = roofline.FP32_OPS_PER_S
 # Operations per item, counted from the kernels' sources (a product and a
 # sum are one each; a division, sqrtf and atanf count as one each).
-# K1's map per output pixel between rectilinear cameras: the ray 4, the
-# 3x3 product 12, the reciprocal 1, a and b 2, sx and sy 4, the bounds
-# tests 5. A fisheye input adds the radius 4, atanf 1, its square 1, the
-# polynomial 6, the distorted angle 3, the scale 3 and two more products
-# in sx and sy. Then the bilinear taps and the rounding per plane; K3's
-# round and clamp per source element;
-# K2's template build (24 x 23 bilinear samples), Scharr gradients and
-# normal-matrix sums over the 441 template elements, and per Newton
-# iteration a bilinear sample, the residual and two sums per element.
-WARP_MAP_OPS_RECT = 28
-WARP_FISHEYE_OPS = 20
-WARP_TAP_OPS = 20
+# K1's map per output pixel and its bilinear taps and rounding per plane:
+# tools/roofline.py, whose floor reads them too. K3's round and clamp per
+# source element; K2's template build (24 x 23 bilinear samples), Scharr
+# gradients and normal-matrix sums over the 441 template elements, and per
+# Newton iteration a bilinear sample, the residual and two sums per element.
+WARP_MAP_OPS_RECT = roofline.MAP_OPS_RECT
+WARP_TAP_OPS = roofline.TAP_OPS
 WARP_TAP_OPS_F32 = 17  # the float mode neither rounds nor clamps
 # K1's modes (csrc/warp_modes.cu). A ray grid replaces the inline ray (4)
 # and its 3x3 product (12) by the full product with a third component
@@ -283,32 +289,24 @@ LK_ITER_OPS = 441 * 14
 # K2 bytes per point: its prev template footprint (25 x 24), one next
 # patch (23 x 23), its 6 float and 4 int arguments and 3 float results.
 LK_POINT_BYTES = 25 * 24 + 23 * 23 + 6 * 4 + 4 * 4 + 3 * 4
+# The roofline phase holds the probes of rows 11 and 12 to their plain
+# versions on the inputs that tools/roofline.py launches them on, over
+# ROOF_CHECK_OUTER outer steps (the plain versions are Python loops: they
+# cannot take its 100 000), bit for bit, the fused chain too (its plain
+# version rounds each step once, through float64).
+ROOF_CHECK_OUTER = 4
+# The keys that label a probe's plain_ms in the kernels line: the outer
+# steps and tiles it was timed at, and the kernel's own time there.
+PLAIN_LABELS = ("plain_outer", "plain_tiles", "ms_at_plain_outer")
+BENCHTOOL_ARGS = ["--size", "1920x1440", "--reps", "10"]
 
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
 
 
-def card_label() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+card_label = roofline.card_label  # the card's name and power limit, as nvidia-smi gives them
+cuda_ms = roofline.event_ms  # mean device ms of fn over reps calls (CUDA events)
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -323,8 +321,7 @@ def bound(nbytes: float, ops: float) -> dict:
 def warp_map_ops(in_camera) -> int:
     """Operations of K1's map per output pixel, by the branch of
     ``source_coords`` that this input camera takes."""
-    fisheye = in_camera.model == CameraModel.FISHEYE
-    return WARP_MAP_OPS_RECT + (WARP_FISHEYE_OPS if fisheye else 0)
+    return roofline.map_ops(in_camera)
 
 
 def lk_bound(points: int, iters: int) -> dict:
@@ -1802,6 +1799,18 @@ def queued_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def launched_alone(name: str, fn):
+    """``fn()``, synchronised, checked to launch kernel object ``name``
+    once and no other."""
+    before = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+    got = fn()
+    torch.cuda.synchronize()
+    moved = {n for n, k in cuda_lib.KERNELS.items() if k.launches != before.get(n, 0)}
+    check(moved == {name} and cuda_lib.KERNELS[name].launches == before.get(name, 0) + 1,
+          f"{name}: launched {moved}")
+    return got
+
+
 def phase_warp_parallel(dev, results):
     """K1's float frame batch (row 6) at B = STREAMS 4K frames and its band
     (row 9) for 2, 3 and 4 ranks at the stock shapes, in each variant the
@@ -1820,17 +1829,8 @@ def phase_warp_parallel(dev, results):
         oc, ic, size = warper.out_cam, warper.in_cam, (warper.out_h, warper.out_w)
         suffix = warp_kernel.variant(oc, interp, None)
 
-        def launch_checked(name, entry):
-            before = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
-            got = entry()
-            torch.cuda.synchronize()
-            moved = {n for n, k in cuda_lib.KERNELS.items() if k.launches != before.get(n, 0)}
-            check(moved == {name} and cuda_lib.KERNELS[name].launches == before.get(name, 0) + 1,
-                  f"{name}: launched {moved}")
-            return got
-
         name = "warp_frames_f32" + suffix
-        got = launch_checked(name, lambda: warp_kernel.warp_frames_f32(
+        got = launched_alone(name, lambda: warp_kernel.warp_frames_f32(
             ys, rots, oc, ic, size, interp=interp))
         want = warp_kernel.warp_frames_f32_plain(ys, rots, oc, ic, size, interp=interp)
         diff = (got - want).abs()
@@ -1872,7 +1872,7 @@ def phase_warp_parallel(dev, results):
             bands = []
             for rank in range(n):
                 args = (ys[0], rots[0], oc, ic, size, n, rank * rows)
-                got = launch_checked(name, lambda: warp_kernel.warp_frame_band_f32(
+                got = launched_alone(name, lambda: warp_kernel.warp_frame_band_f32(
                     *args, interp=interp))
                 want = warp_kernel.warp_frame_band_f32_plain(*args, interp=interp)
                 diff = (got - want).abs()
@@ -1898,6 +1898,137 @@ def phase_warp_parallel(dev, results):
         ms, _, plain_ms, b = timed[BAND_SHARDS[0]]
         results[name] = dict(max_abs_err=band_err, ms=ms, plain_ms=plain_ms,
                              bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+
+
+def check_probe(name: str, got: torch.Tensor, want: torch.Tensor, tiles: int) -> float:
+    """A probe against its plain version, bit for bit. Returns the largest
+    |diff|."""
+    diff = (got - want).abs()
+    differ = int((diff > 0).sum())
+    log(f"[roofline {name}] {tiles} tile(s), outer {ROOF_CHECK_OUTER}: max |diff| "
+        f"{float(diff.max()):.3g}, {differ} of {got.numel()} values differ")
+    check(got.shape == want.shape and differ == 0 and torch.equal(got, want),
+          f"{name} disagrees with plain")
+    return float(diff.max())
+
+
+def phase_roofline(dev, results, label):
+    """The measurement path (rows 11 and 12, K1's diagnostic builds). Rows
+    11 and 12: every object against its plain version at outer 4 on the
+    inputs ``tools/roofline.py`` gives it (one tile and 528), launched
+    alone, bit for bit. K1's three diagnostic builds against their plain
+    twins on the 4K batches that it launches them on (4 and 16 frames),
+    0 differing values, each timed at 16. Then, with every launch count
+    at 0 just before and read just after, ``tools/roofline.py``'s
+    measurements at outer 100 000 and 4K (``roofline.run``) and
+    ``benchtool.main`` at 1920x1440: the rates, K1's floor and its
+    decomposition. Returns the launch counts. A probe's ``ms`` and bound
+    are those of its 528-tile launch at outer 100 000; its ``plain_ms``
+    is at outer 4 on 528 tiles, labelled so in the ``kernels`` line beside
+    the kernel's own time there."""
+    t0 = time.perf_counter()
+    err, at_plain = {}, {}
+    for n, x in roofline.fma_cases(dev).items():
+        for (u, fused), k in roofline_kernel.FMA_CHAIN.items():
+            def entry():
+                return roofline_kernel.fma_chain(x, u, ROOF_CHECK_OUTER, fused)
+
+            def plain():
+                return roofline_kernel.fma_chain_plain(x, u, ROOF_CHECK_OUTER, fused)
+
+            got, want = launched_alone(k.name, entry), plain()
+            err[k.name] = max(err.get(k.name, 0.0), check_probe(k.name, got, want, n))
+            if fused:  # the bit-for-bit check tells the fused chain from the unfused
+                other = roofline_kernel.fma_chain_plain(x, u, ROOF_CHECK_OUTER, False)
+                apart = int((other != want).sum())
+                log(f"[roofline {k.name}] the unfused plain chain differs from it in {apart} "
+                    f"of {want.numel()} values")
+                check(apart > 0, f"{k.name}: the check cannot tell fused from unfused")
+            if n == roofline.CARD_TILES:
+                at_plain[k.name] = (cuda_ms(entry, 20), cuda_ms(plain, 2, 0))
+    for n, (seg, idx) in roofline.gather_cases(dev).items():
+        for u, k in roofline_kernel.GATHER_VISIT.items():
+            def entry():
+                return roofline_kernel.gather_visits(seg, idx, u, ROOF_CHECK_OUTER)
+
+            def plain():
+                return roofline_kernel.gather_visits_plain(seg, idx, u, ROOF_CHECK_OUTER)
+
+            got = launched_alone(k.name, entry)
+            err[k.name] = max(err.get(k.name, 0.0), check_probe(k.name, got, plain(), n))
+            if n == roofline.CARD_TILES:
+                at_plain[k.name] = (cuda_ms(entry, 20), cuda_ms(plain, 2, 0))
+
+    ys, rots, oc, ic, size = roofline.k1_inputs(dev, max(roofline.BATCHES))
+    for diag, k in warp_kernel.LUMA_DIAG_KERNELS.items():
+        for frames in roofline.BATCHES:
+            def entry():
+                return warp_kernel.warp_luma_batch_diag(ys[:frames], rots[:frames], oc, ic,
+                                                        size, diag)
+
+            def plain():
+                return warp_kernel.warp_luma_batch_diag_plain(ys[:frames], rots[:frames], oc,
+                                                              ic, size, diag)
+
+            got = launched_alone(k.name, entry)
+            diff = (got.to(torch.int16) - plain().to(torch.int16)).abs()
+            differ = int((diff > 0).sum())
+            log(f"[K1 {k.name}] {tuple(ys[:frames].shape)} -> {tuple(got.shape)}: {differ} of "
+                f"{got.numel()} values differ from its plain twin")
+            check(differ == 0, f"{k.name} disagrees with its plain twin")
+        ms, p_ms = cuda_ms(entry, 20), cuda_ms(plain, 3, 1)
+        pixels = frames * size[0] * size[1]
+        no_map = bool(diag & warp_kernel.DIAG_NO_MAP)
+        b = bound((0 if diag & warp_kernel.DIAG_NO_TAPS else ys.numel()) + rots.numel() * 4
+                  + got.numel(), pixels * ((roofline.NO_MAP_OPS if no_map else warp_map_ops(ic))
+                                           + WARP_TAP_OPS))
+        log(f"[K1 {k.name}] kernel {ms:.3f} ms, plain {p_ms:.3f} ms per {frames}-frame "
+            f"launch; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        results[k.name] = dict(max_abs_err=float(diff.max()), ms=ms, plain_ms=p_ms, **b)
+    log(f"[roofline] the checks against plain and their timing: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    for k in cuda_lib.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    roof = roofline.run(dev)
+    roof_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bench_rc = benchtool.main(BENCHTOOL_ARGS)
+    torch.cuda.synchronize()
+    bench_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+    log(f"[roofline] launches {launches}")
+    check(bench_rc == 0, f"benchtool {' '.join(BENCHTOOL_ARGS)} returned {bench_rc}")
+    probes = ([k.name for k in roofline_kernel.FMA_CHAIN.values()]
+              + [k.name for k in roofline_kernel.GATHER_VISIT.values()]
+              + [k.name for k in warp_kernel.LUMA_DIAG_KERNELS.values()]
+              + ["warp_luma", "warp_frame_f32", "stage", "lk_level_frame"])
+    for name in probes:
+        check(launches.get(name, 0) > 0, f"[roofline] kernel {name} was not launched")
+    log(f"[roofline] {label}: tools/roofline.py {roof_s:.1f} s, benchtool {bench_s:.1f} s")
+    for line in roofline.summary(roof):
+        log(f"[roofline] {line}")
+
+    tile_bytes = roofline.TILE * 4
+    for call in roof["fma"]["calls"] + roof["gather"]["calls"]:
+        if call["tiles"] != roofline.CARD_TILES:
+            continue
+        name, n = call["object"], call["tiles"]
+        fma = name.startswith("fma")
+        u = int(name.rsplit("_u", 1)[1])
+        elems = n * roofline.TILE * roofline.OUTER * u
+        b = (bound(2 * n * tile_bytes, elems * roofline.FMA_STEP_OPS) if fma
+             else bound(3 * n * tile_bytes, elems * roofline.GATHER_VISIT_OPS))
+        short_ms, plain_ms = at_plain[name]
+        log(f"[roofline {name}] {n} tiles, outer {roofline.OUTER}: kernel {call['ms']:.3f} ms, "
+            f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}), {b['bound_ms'] / call['ms']:.1%} "
+            f"of it; at outer {ROOF_CHECK_OUTER} on {n} tiles: kernel {short_ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms")
+        results[name] = dict(max_abs_err=err[name], ms=call["ms"], plain_ms=plain_ms,
+                             plain_outer=ROOF_CHECK_OUTER, plain_tiles=n,
+                             ms_at_plain_outer=short_ms, **b)
+    return launches
 
 
 def render_clip(dev, w: int, h: int, streams: int, frames: int):
@@ -2180,9 +2311,10 @@ def main(argv=None) -> int:
     phase_stage_lk(dev, results)
     phase_lk_frame(dev, results)
     phase_warp_parallel(dev, results)
+    roof_launches = phase_roofline(dev, results, label)
     log(f"[kernels] times above measured on {label}")
     launches = phase_renders(dev, label, native_ok, native_why)
-    for name, count in phase_parallel(dev, label).items():
+    for name, count in [*phase_parallel(dev, label).items(), *roof_launches.items()]:
         launches[name] = launches.get(name, 0) + count
     phase_tracked_profile(dev, label)
     phase_kalman_window(dev, label)
@@ -2198,6 +2330,7 @@ def main(argv=None) -> int:
             "replaces": k.replaces, "launches": launches.get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            **{key: r[key] for key in PLAIN_LABELS if key in r},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

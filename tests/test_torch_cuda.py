@@ -25,10 +25,11 @@ from video_annotator_tpu_torch.models.similarity import (
     SimilarityWarper,
     warp_frame_similarity,
 )
-from video_annotator_tpu_torch.ops import lk_kernel, stage, warp_kernel
+from video_annotator_tpu_torch.ops import lk_kernel, roofline_kernel, stage, warp_kernel
 from video_annotator_tpu_torch.ops.warp_plain import scaled_camera
 from video_annotator_tpu_torch.pipeline import render as trender
 from video_annotator_tpu_torch.pipeline.trajectory import Trajectory
+from video_annotator_tpu_torch.tools import roofline
 
 pytestmark = pytest.mark.cuda
 
@@ -556,3 +557,34 @@ def test_frame_batch_and_band_kernels_match_plain(cuda, interp, projection):
                 frames[0], rots[0], out_cam, in_cam, size, n, rank * rows, interp=interp))
             bands.append(b)
         assert torch.equal(torch.cat(bands)[:size[0]], whole)
+
+
+@pytest.mark.parametrize("tiles", [1, 3])
+def test_roofline_probes_match_plain(cuda, tiles):
+    """Rows 11 and 12 against their plain versions over 3 outer steps, bit
+    for bit: the fused chain's plain version rounds each step once, as a
+    fused multiply-add does."""
+    x = roofline.fma_inputs(tiles, tiles, cuda)
+    for u, fused in roofline_kernel.FMA_CHAIN:
+        got = roofline_kernel.fma_chain(x, u, 3, fused)
+        torch.cuda.synchronize()
+        assert torch.equal(got, roofline_kernel.fma_chain_plain(x, u, 3, fused))
+    seg, idx = roofline.gather_inputs(tiles, tiles, cuda)
+    for u in roofline_kernel.GATHER_VISIT:
+        got = roofline_kernel.gather_visits(seg, idx, u, 3)
+        torch.cuda.synchronize()
+        assert torch.equal(got, roofline_kernel.gather_visits_plain(seg, idx, u, 3))
+
+
+@pytest.mark.parametrize("diag", [0, 1, 2, 3])
+def test_luma_diag_builds_match_their_plain_twins(cuda, diag):
+    in_cam = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (320, 240))
+    out_cam = get_output_camera(in_cam, crop_borders=True)
+    size = (out_cam.height, out_cam.width)
+    g = torch.Generator().manual_seed(diag)
+    ys = torch.randint(0, 256, (3, 240, 320), generator=g, dtype=torch.uint8).to(cuda)
+    rots = so3.exp(torch.randn((3, 3), generator=g) * 0.03).to(cuda)
+    got = warp_kernel.warp_luma_batch_diag(ys, rots, out_cam, in_cam, size, diag)
+    torch.cuda.synchronize()
+    assert torch.equal(got, warp_kernel.warp_luma_batch_diag_plain(ys, rots, out_cam, in_cam,
+                                                                   size, diag))

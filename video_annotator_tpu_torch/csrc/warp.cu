@@ -53,6 +53,20 @@
 // scalar memory (warp_pallas.py:1911-1923); this kernel prefetches no
 // metadata and takes any T.
 //
+// The diagnostic builds of the uint8 luma batch (DIAG, a template argument
+// of warp_kernel; the TPU kernel's VAT_WARP_DIAG builds no_dma and no_walk,
+// warp_pallas.py:146-153, :406-422, :1083, :1434) split K1's time on the
+// card into its parts: the map (source_coords), the taps (the four __ldg
+// of Taps::sample) and the scaffolding (the index math, the validity
+// branch, the rounding and the store). NO_TAPS runs the map and the blend
+// but reads no source byte: each in-image tap takes the value DIAG_TAP, so
+// the output is the warp of a flat plane. NO_MAP takes no 3x3 product and
+// no projection: the source coordinates are the output pixel's own scaled
+// to the source extent, one product per axis, and the taps run as usual,
+// with a locality close to the real map's. Their output pixels are
+// garbage, for timing only; each has its own entry, which no render
+// reaches. DIAG = 0 is the kernel as it was, instruction for instruction.
+//
 // K1's 4-tap, ray-grid and per-tile mip modes are csrc/warp_modes.cu; the
 // helpers the two sources share (the camera parameters, the per-tile-row
 // rotation, the unfused arithmetic, the input projection) are
@@ -74,6 +88,10 @@
 
 namespace {
 
+constexpr int DIAG_NO_TAPS = 1;
+constexpr int DIAG_NO_MAP = 2;
+constexpr float DIAG_TAP = 200.0f;  // NO_TAPS: the flat plane's value
+
 // Source coordinates of output pixel (x, y) under the 3x3 `r`. False when
 // every tap falls outside the image or the ray points behind the camera.
 __device__ __forceinline__ bool source_coords(const WarpParams& p,
@@ -87,6 +105,16 @@ __device__ __forceinline__ bool source_coords(const WarpParams& p,
   input_coords(p, vx, vy, vz, sx, sy);
   return *sx > -1.0f && *sx < (float)p.in_w && *sy > -1.0f &&
          *sy < (float)p.in_h && vz > 1e-6f;
+}
+
+// NO_MAP's source coordinates: the output pixel's own, times in_w / out_w
+// and in_h / out_h, which its entry puts where the output camera's 1 / f
+// were (the build reads no camera); false outside the image.
+__device__ __forceinline__ bool scaled_coords(const WarpParams& p, int x, int y, float* sx,
+                                              float* sy) {
+  *sx = mul((float)x, p.inv_ofx);
+  *sy = mul((float)y, p.inv_ofy);
+  return *sx > -1.0f && *sx < (float)p.in_w && *sy > -1.0f && *sy < (float)p.in_h;
 }
 
 // The 2x2 bilinear taps around (sx, sy) of one plane, centred on the
@@ -118,6 +146,18 @@ struct Taps {
     const float v01 = (in_y0 && in_x1) ? (float)__ldg(s + row0 + xi + 1) - border : 0.0f;
     const float v10 = (in_y1 && in_x0) ? (float)__ldg(s + row1 + xi) - border : 0.0f;
     const float v11 = (in_y1 && in_x1) ? (float)__ldg(s + row1 + xi + 1) - border : 0.0f;
+    return blend(v00, v01, v10, v11, border);
+  }
+
+  // sample() over a flat plane of `value` that is never read (NO_TAPS).
+  __device__ __forceinline__ float flat(float value, float border) const {
+    const float v = value - border;
+    return blend((in_y0 && in_x0) ? v : 0.0f, (in_y0 && in_x1) ? v : 0.0f,
+                 (in_y1 && in_x0) ? v : 0.0f, (in_y1 && in_x1) ? v : 0.0f, border);
+  }
+
+  __device__ __forceinline__ float blend(float v00, float v01, float v10, float v11,
+                                         float border) const {
     const float top = add(mul(v00, 1.0f - fx), mul(v01, fx));
     const float bot = add(mul(v10, 1.0f - fx), mul(v11, fx));
     return add(add(mul(top, 1.0f - fy), mul(bot, fy)), border);
@@ -125,8 +165,9 @@ struct Taps {
 };
 
 // (T, NPLANES, in_h, in_w) uint8 -> (T, NPLANES, out_h, out_w) uint8, one
-// 3x3 per frame or per tile row of a frame.
-template <int NPLANES, bool RS>
+// 3x3 per frame or per tile row of a frame; DIAG 0, or the diagnostic
+// build's bits.
+template <int NPLANES, bool RS, int DIAG>
 __global__ void warp_kernel(const uint8_t* __restrict__ src,
                             uint8_t* __restrict__ dst,
                             const float* __restrict__ rot, WarpParams p, int ny) {
@@ -149,7 +190,12 @@ __global__ void warp_kernel(const uint8_t* __restrict__ src,
   if (x >= p.out_w || y >= p.out_h) return;
 
   float sx, sy;
-  const bool valid = source_coords(p, r, x, y, &sx, &sy);
+  bool valid;
+  if constexpr (DIAG & DIAG_NO_MAP) {
+    valid = scaled_coords(p, x, y, &sx, &sy);
+  } else {
+    valid = source_coords(p, r, x, y, &sx, &sy);
+  }
   const size_t in_plane = (size_t)p.in_h * p.in_w;
   const size_t out_plane = (size_t)p.out_h * p.out_w;
   uint8_t* out = dst + (size_t)t * NPLANES * out_plane + (size_t)y * p.out_w + x;
@@ -163,7 +209,11 @@ __global__ void warp_kernel(const uint8_t* __restrict__ src,
 #pragma unroll
   for (int pl = 0; pl < NPLANES; ++pl) {
     const uint8_t* s = src + ((size_t)t * NPLANES + pl) * in_plane;
-    out[pl * out_plane] = to_u8(taps.sample(s, p.border));
+    if constexpr (DIAG & DIAG_NO_TAPS) {
+      out[pl * out_plane] = to_u8(taps.flat(DIAG_TAP, p.border));
+    } else {
+      out[pl * out_plane] = to_u8(taps.sample(s, p.border));
+    }
   }
 }
 
@@ -231,8 +281,8 @@ template <bool RS>
 bool launch_u8(int nplanes, dim3 grid, dim3 block, cudaStream_t s, const uint8_t* in,
                uint8_t* out, const float* r, const WarpParams& p, int ny) {
   switch (nplanes) {
-    case 1: warp_kernel<1, RS><<<grid, block, 0, s>>>(in, out, r, p, ny); return true;
-    case 2: warp_kernel<2, RS><<<grid, block, 0, s>>>(in, out, r, p, ny); return true;
+    case 1: warp_kernel<1, RS, 0><<<grid, block, 0, s>>>(in, out, r, p, ny); return true;
+    case 2: warp_kernel<2, RS, 0><<<grid, block, 0, s>>>(in, out, r, p, ny); return true;
     default: return false;
   }
 }
@@ -247,6 +297,31 @@ bool launch_f32(int nplanes, dim3 grid, dim3 block, cudaStream_t s, const float*
     case 4: warp_f32_kernel<4, RS><<<grid, block, 0, s>>>(in, out, r, p, ny); return true;
     default: return false;
   }
+}
+
+// The diagnostic builds of the luma batch (DIAG above), each its own entry
+// with vat_warp_u8's arguments: one plane (nplanes 1), one 3x3 per frame
+// (ny 0). NO_MAP takes in_w / out_w and in_h / out_h in place of 1 / ofx
+// and 1 / ofy, computed here in float32 as its plain version does.
+template <int DIAG>
+int warp_luma_diag(const void* src, void* dst, const void* rot, int t, int nplanes,
+                   int in_h, int in_w, int out_h, int out_w, int ny, float ofx, float ofy,
+                   float ocx, float ocy, float ifx, float ify, float icx, float icy,
+                   float k1, float k2, float k3, float k4, int fisheye, float border,
+                   void* stream) {
+  WarpParams p{1.0f / ofx, 1.0f / ofy, ocx, ocy, ifx, ify, icx, icy, k1, k2, k3, k4,
+               border, in_w, in_h, out_w, out_h, fisheye};
+  if (DIAG & DIAG_NO_MAP) {
+    p.inv_ofx = (float)in_w / (float)out_w;
+    p.inv_ofy = (float)in_h / (float)out_h;
+  }
+  if (nplanes != 1 || ny != 0 || t < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(32, TILE_ROWS);
+  const dim3 grid((out_w + 31) / 32, (out_h + TILE_ROWS - 1) / TILE_ROWS, t);
+  warp_kernel<1, false, DIAG><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst),
+      static_cast<const float*>(rot), p, 0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -319,3 +394,18 @@ extern "C" int vat_warp_f32_band(const void* src, void* dst, const void* rot, in
       static_cast<const float*>(rot), p, ny, off);
   return static_cast<int>(cudaGetLastError());
 }
+
+#define VAT_WARP_LUMA_DIAG(entry, diag)                                                   \
+  extern "C" int entry(const void* src, void* dst, const void* rot, int t, int nplanes,   \
+                       int in_h, int in_w, int out_h, int out_w, int ny, float ofx,       \
+                       float ofy, float ocx, float ocy, float ifx, float ify, float icx,  \
+                       float icy, float k1, float k2, float k3, float k4, int fisheye,    \
+                       float border, void* stream) {                                      \
+    return warp_luma_diag<diag>(src, dst, rot, t, nplanes, in_h, in_w, out_h, out_w, ny,  \
+                                ofx, ofy, ocx, ocy, ifx, ify, icx, icy, k1, k2, k3, k4,   \
+                                fisheye, border, stream);                                 \
+  }
+
+VAT_WARP_LUMA_DIAG(vat_warp_luma_diag_no_taps, DIAG_NO_TAPS)
+VAT_WARP_LUMA_DIAG(vat_warp_luma_diag_no_map, DIAG_NO_MAP)
+VAT_WARP_LUMA_DIAG(vat_warp_luma_diag_no_map_no_taps, DIAG_NO_MAP | DIAG_NO_TAPS)

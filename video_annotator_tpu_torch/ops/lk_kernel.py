@@ -39,7 +39,7 @@ from video_annotator_tpu_torch.ops.lk import (
     WIN,
     build_pyramid,
 )
-from video_annotator_tpu_torch.ops.stage import stage_u8
+from video_annotator_tpu_torch.ops.stage import stage_u8, stage_u8_plain
 
 HALF = WIN // 2
 PAD = 6  # Newton drift allowance (pixels) inside the window
@@ -257,14 +257,14 @@ def stage_pyramid_pairs(frames: torch.Tensor,
     """Staged uint8 pyramid of a (T, H, W) chunk, one stack per level;
     ``None`` for levels too small for the window (the tracker keeps its
     coarse guess there, as the TPU path does)."""
-    staged = []
-    for level in build_pyramid(frames, levels):
-        ph, pw = level.shape[-2:]
-        if ph < 4 * DMA_WORDS + 32 or pw < WCOLS:
-            staged.append(None)
-        else:
-            staged.append(stage_u8(level, pad_value=0, slack=SLACK_ROWS))
-    return staged
+    return [stage_u8(level, pad_value=0, slack=SLACK_ROWS) if _stageable(level) else None
+            for level in build_pyramid(frames, levels)]
+
+
+def _stageable(level: torch.Tensor) -> bool:
+    """Whether a pyramid level is large enough for the window."""
+    ph, pw = level.shape[-2:]
+    return ph >= 4 * DMA_WORDS + 32 and pw >= WCOLS
 
 
 def stage_pyramid(frame: torch.Tensor,
@@ -333,6 +333,31 @@ def pyramidal_lk_packed(staged_prev: Sequence[Optional[torch.Tensor]],
         scale = 2.0 ** lvl
         pf, pi, ok_windows = level_args(prev, pts / scale, None, flow / scale)
         out = lk_level_frame(prev, nxt, pf, pi, iters)
+        flow = out[:, :2] * scale
+        status = status & (out[:, 2] > 0.5) & ok_windows
+    new_pts = pts + flow
+    return new_pts, status & _in_bounds(pts, new_pts, h, w)
+
+
+def pyramidal_lk_plain(frame: torch.Tensor, next_frame: torch.Tensor, points: torch.Tensor,
+                       valid: torch.Tensor, iters: int = DEF_ITERS):
+    """:func:`pyramidal_lk_packed` over the :func:`stage_pyramid` pyramids
+    of two (H, W) frames, staged and tracked by K3's and K2's plain
+    versions on any device (the plain row of ``benchtool``). Returns
+    ``(new_points (N, 2), status (N,))``."""
+    h, w = frame.shape
+    pts = points.to(torch.float32)
+    flow = torch.zeros_like(pts)
+    status = valid
+    levels = list(zip(build_pyramid(frame[None]), build_pyramid(next_frame[None])))
+    for lvl in range(len(levels) - 1, -1, -1):
+        if not _stageable(levels[lvl][0]):
+            continue  # tiny level: keep the coarse guess
+        prev, nxt = (stage_u8_plain(level, pad_value=0, slack=SLACK_ROWS)[0]
+                     for level in levels[lvl])
+        scale = 2.0 ** lvl
+        pf, pi, ok_windows = level_args(prev, pts / scale, None, flow / scale)
+        out = lk_level_plain(prev, nxt, pf, pi, iters)
         flow = out[:, :2] * scale
         status = status & (out[:, 2] > 0.5) & ok_windows
     new_pts = pts + flow

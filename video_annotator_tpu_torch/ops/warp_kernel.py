@@ -53,6 +53,12 @@ or ``_lanczos``, ``_rays``, ``_mip`` for the modes it runs, then ``_rs``
 (``warp_luma_bicubic_rays_mip_rs``). The bilinear, rectilinear, no-mip
 launches keep their kernels and objects.
 
+And the diagnostic builds of the luma batch, for the roofline tool only
+(:func:`warp_luma_batch_diag`; the TPU kernel's ``VAT_WARP_DIAG`` builds,
+:146-153, :406-422): K1 without its taps, without its map, or without
+both, each its own kernel object. No render reaches them, and no
+environment variable selects them.
+
 The float entries sample the float source as it is, like the XLA oracle;
 the TPU kernel rounded it to bytes while packing (``_pack_input``,
 :1737). On integer-valued planes, which is what the callers pass, the
@@ -91,6 +97,7 @@ from video_annotator_tpu_torch.ops.warp_plain import (
     compute_warp_map,
     map_rays,
     num_tile_rows,
+    bilinear_sample,
     ray_grid,
     sample,
 )
@@ -132,6 +139,21 @@ WARP_YUV_CHROMA_RS = _kernel("warp_yuv_chroma_rs", "vat_warp_u8", _U8_ARGTYPES, 
 # _build_warp_batch_fn and _build_warp_band_fn (rows 6 and 9)
 WARP_FRAMES_F32 = _kernel("warp_frames_f32", "vat_warp_f32", _F32_ARGTYPES, 1860)
 WARP_BAND_F32 = _kernel("warp_band_f32", "vat_warp_f32_band", _BAND_ARGTYPES, 2303)
+# K1's diagnostic builds of the luma batch (csrc/warp.cu, DIAG), by their
+# bits, each in place of the TPU build it stands for: no_walk (the source
+# sampling left out), no_dma (the other half), and the two together as
+# VAT_WARP_DIAG=no_dma,no_walk parsed them.
+DIAG_NO_TAPS = 1
+DIAG_NO_MAP = 2
+DIAG_TAP = 200  # NO_TAPS samples a flat plane of this value without reading it
+LUMA_DIAG_KERNELS = {
+    DIAG_NO_TAPS: _kernel("warp_luma_diag_no_taps", "vat_warp_luma_diag_no_taps",
+                          _U8_ARGTYPES, 1434),
+    DIAG_NO_MAP: _kernel("warp_luma_diag_no_map", "vat_warp_luma_diag_no_map",
+                         _U8_ARGTYPES, 1083),
+    DIAG_NO_MAP | DIAG_NO_TAPS: _kernel("warp_luma_diag_no_map_no_taps",
+                                        "vat_warp_luma_diag_no_map_no_taps", _U8_ARGTYPES, 406),
+}
 # (luma, chroma) kernel objects, by whether the rotations are per tile row.
 BATCH_KERNELS = {False: (WARP_LUMA, WARP_CHROMA),
                  True: (WARP_LUMA_RS, WARP_CHROMA_RS)}
@@ -652,4 +674,67 @@ def warp_frame_band_f32(frame: torch.Tensor, rotation: torch.Tensor,
         cuda_lib.ptr(frame), cuda_lib.ptr(out), cuda_lib.ptr(rotation),
         in_h, in_w, out_h, out_w, rows, int(tile_row_off),
         *_camera_args(out_camera, in_camera, border))
+    return out
+
+
+def scaled_coords(in_size: Tuple[int, int], out_size: Tuple[int, int], device) -> torch.Tensor:
+    """(out_h, out_w, 2) source coordinates (x, y) of the ``DIAG_NO_MAP``
+    build: each output pixel's own, times in_w / out_w and in_h / out_h
+    taken in float32."""
+    (in_h, in_w), (out_h, out_w) = in_size, out_size
+    f32 = torch.float32
+    sx = torch.tensor(in_w, dtype=f32) / torch.tensor(out_w, dtype=f32)
+    sy = torch.tensor(in_h, dtype=f32) / torch.tensor(out_h, dtype=f32)
+    xs = torch.arange(out_w, dtype=f32, device=device) * sx.to(device)
+    ys = torch.arange(out_h, dtype=f32, device=device) * sy.to(device)
+    return torch.stack([xs[None, :].expand(out_h, out_w), ys[:, None].expand(out_h, out_w)],
+                       dim=-1)
+
+
+def warp_luma_batch_diag_plain(ys: torch.Tensor, rotations: torch.Tensor,
+                               out_camera: Camera, in_camera: Camera,
+                               out_size: Tuple[int, int], diag: int) -> torch.Tensor:
+    """Plain twin of :func:`warp_luma_batch_diag`: the same garbage. With
+    ``DIAG_NO_TAPS`` the warp of a flat ``DIAG_TAP`` plane; with
+    ``DIAG_NO_MAP`` the bilinear taps at :func:`scaled_coords`."""
+    src = torch.full_like(ys, DIAG_TAP) if diag & DIAG_NO_TAPS else ys
+    if not diag & DIAG_NO_MAP:
+        return warp_planes_u8_plain(src[:, None], rotations, out_camera, in_camera,
+                                    out_size)[:, 0]
+    coords = scaled_coords(tuple(ys.shape[-2:]), out_size, ys.device)
+    return torch.stack([to_u8(bilinear_sample(plane, coords)) for plane in src])
+
+
+def warp_luma_batch_diag(ys: torch.Tensor, rotations: torch.Tensor,
+                         out_camera: Camera, in_camera: Camera,
+                         out_size: Tuple[int, int], diag: int) -> torch.Tensor:
+    """The luma batch of :func:`warp_yuv_batch` ((T, H, W) uint8, (T, 3, 3)
+    rotations, bilinear, a rectilinear output, border 0) in one of K1's
+    diagnostic builds: ``diag`` 0 is the product kernel (``warp_luma``),
+    else the bits ``DIAG_NO_TAPS`` and ``DIAG_NO_MAP``, whose output is
+    garbage, for timing only (the roofline tool's decomposition)."""
+    if diag == 0:
+        return warp_planes_u8(ys[:, None], rotations, out_camera, in_camera, out_size)[:, 0]
+    kernel = LUMA_DIAG_KERNELS.get(diag)
+    if kernel is None:
+        raise ValueError(f"diag must be 0 or one of {sorted(LUMA_DIAG_KERNELS)}, got {diag}")
+    if ys.dim() != 3 or ys.dtype != torch.uint8:
+        raise ValueError(f"the diagnostic builds take (T, H, W) uint8, got "
+                         f"{tuple(ys.shape)} {ys.dtype}")
+    if _tile_rows(rotations, lead=(ys.shape[0],)) != 0:
+        raise ValueError("the diagnostic builds take one 3x3 per frame")
+    _check_cameras(out_camera, in_camera)
+    if variant(out_camera, "bilinear", None):
+        raise ValueError("the diagnostic builds take a rectilinear output camera")
+    rotations = rotations.to(device=ys.device, dtype=torch.float32)
+    if ys.device.type == "cpu":
+        return warp_luma_batch_diag_plain(ys, rotations, out_camera, in_camera, out_size, diag)
+    cuda_lib.check_cuda(ys)
+    ys, rotations = ys.contiguous(), rotations.contiguous()
+    t, in_h, in_w = ys.shape
+    out_h, out_w = out_size
+    out = torch.empty((t, out_h, out_w), dtype=torch.uint8, device=ys.device)
+    cuda_lib.check_operands(ys, rotations, out)
+    kernel.launch(cuda_lib.ptr(ys), cuda_lib.ptr(out), cuda_lib.ptr(rotations),
+                  t, 1, in_h, in_w, out_h, out_w, 0, *_camera_args(out_camera, in_camera, 0.0))
     return out

@@ -1,9 +1,9 @@
 """Savitzky-Golay smoothing weights and the entrywise trajectory filter.
 
 Port of ``video_annotator_tpu/smoothing/savgol.py`` (``savgol_weights``,
-``sg_conv``): the least-squares polynomial-fit weights over a centred
-window, applied to each of the 9 rotation-matrix entries of an already
-replicate-padded trajectory. The convolution is a sliding-window sum of
+``sg_conv``, ``smooth_rotations``): the least-squares polynomial-fit
+weights over a centred window, applied to each of the 9 rotation-matrix
+entries of a replicate-padded trajectory. The convolution is a sliding-window sum of
 elementwise products (no cuDNN, hence no TF32).
 """
 
@@ -13,6 +13,8 @@ import math
 
 import numpy as np
 import torch
+
+from video_annotator_tpu_torch import so3
 
 
 def savgol_weights(radius: int, order: int = 2, pos: int = 0,
@@ -34,3 +36,13 @@ def sg_conv(padded: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     convolution)."""
     windows = padded.unfold(0, w.shape[0], 1)  # (T, K, 2r + 1)
     return (windows * w.to(padded.device)).sum(dim=-1)
+
+
+def smooth_rotations(rotations: torch.Tensor, radius: int, order: int = 2) -> torch.Tensor:
+    """(T, 3, 3) -> (T, 3, 3): both ends replicate-padded by ``radius``,
+    each entry convolved with the SG kernel, each result projected back
+    to SO(3)."""
+    w = torch.from_numpy(savgol_weights(radius, order)).to(rotations.device)
+    flat = rotations.reshape(-1, 9).to(torch.float32)
+    padded = torch.cat([flat[:1].expand(radius, 9), flat, flat[-1:].expand(radius, 9)])
+    return so3.project(sg_conv(padded, w).reshape(-1, 3, 3))

@@ -25,7 +25,9 @@ case it prints each build's median, least and largest time over the rounds
 (CUDA events, 20 launches a reading) and the median's ratio to ``tree``.
 Every build must also return the same bytes as ``tree``. The card's name
 and power limit head the output. Under each build stands the number of
-machine instructions of each of its kernels (``cuobjdump -sass``); with
+machine instructions of each of its kernels (``cuobjdump -sass``; the
+uint8 kernel's product build, ``DIAG`` 0, under its name from before the
+diagnostic builds, so that counts line up with an earlier source's); with
 ``--sass DIR`` the listings themselves are written to ``DIR``, one file a
 build, to tell a difference in the code from one in its placement.
 """
@@ -103,7 +105,9 @@ def sass_counts(nvcc: str, lib: Path, label: str, sass_dir) -> dict:
     for line in text.splitlines():
         found = re.search(r"Function : \S*?\d(warp\w*?_kernel\w*?)Ev?PK", line)
         if found:
-            name = found.group(1)
+            # The uint8 kernel's DIAG = 0 instantiation under its name from
+            # before the diagnostic builds (a last template argument 0).
+            name = re.sub(r"ELi0EE$", "EE", found.group(1))
             counts[name] = 0
         elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
             counts[name] += 1
