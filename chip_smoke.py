@@ -14,14 +14,20 @@ the last line is printed):
    line where it did not).
 2. Each kernel against its plain PyTorch version on the same card inputs
    at the main paths' shapes, both timed with CUDA events, beside the
-   kernel's bound: K1 on a 4K warp batch; K1's float mode on one 4K luma
+   kernel's bound: K1's uint8 batch, luma and chroma, with one rotation
+   per frame and one per tile row, on 4 and on 32 4K frames (the render's
+   batch), each launch with 0 differing values from its plain version;
+   K1's float mode on one 4K luma
    plane and on the two chroma planes of one frame; K1's one-frame uint8
-   mode over identity pinhole cameras with a similarity matrix (also held
-   against ``warp_similarity``); K3 and K2's pairs form on one 17-frame LK
+   mode over identity pinhole cameras with a similarity matrix (0
+   differing values from its plain version, and held within one count of
+   ``warp_similarity``); K3 and K2's pairs form on one 17-frame LK
    chunk at 1920x1440 with 200 corners per frame; K2's per-frame form on
    one 4K pair box-downsampled to 1920x1440 with the tracker's 200
-   corners. K1's per-tile-row rotation mode (the rolling-shutter form)
-   through every entry at the same 4K shapes with (T, 440, 3, 3) stacks,
+   corners, K2's level 0 timed over 100 launches queued behind a
+   sleeping kernel. K1's per-tile-row rotation mode (the rolling-shutter
+   form) through its one-frame and float entries at the same 4K shapes
+   with (1, 440, 3, 3) stacks,
    each beside the time of the same launch with whole-frame rotations,
    and once with a stack shorter than ceil(out_h / 8) (the clipped row
    index). K1's variants in ``csrc/warp_modes.cu`` (``MODE_CASES``): the
@@ -209,8 +215,10 @@ MAX_UP_DEG = 0.1
 GYRO_SAMPLES = 240_000  # 10 minutes at 400 Hz
 F32_ATOL = 1e-3  # float32 sums in another order over values up to 255
 WARP_FRAMES = 4
+WARP_BATCH = trender.DEFAULT_WARP_BATCH  # frames of a render's warp launch: 32
 LK_CHUNK = 17
 LK_ITERS = 8
+LK_REPS = 100  # K2's launches a reading, queued: each is near the launch floor
 MAX_RMS_DEG = 0.1
 MIN_EQUAL = 0.999
 MIN_STATUS_AGREEMENT = 0.99
@@ -278,10 +286,6 @@ BAND_SHARDS = (2, 3, 4)
 PARALLEL_KERNELS = ("warp_frames_f32", "warp_frames_f32_bicubic", "warp_frames_f32_rays",
                     "warp_band_f32", "warp_band_f32_bicubic", "warp_band_f32_rays",
                     "warp_luma", "warp_chroma", "stage", "lk_level")
-# Cycles of the sleeping kernel that queued_ms puts ahead of the calls it
-# times: about 10 ms at the H100's clocks, for calls that take the host
-# about 0.1 ms each.
-QUEUE_CYCLES = 20_000_000
 PIPE_CORNERS = 32  # build_pipeline_step's max_corners: the dryrun's
 NATIVE_FRAMES = 24
 LK_TEMPLATE_OPS = 24 * 23 * 9 + 441 * 26
@@ -307,6 +311,7 @@ def log(msg: str = "") -> None:
 
 card_label = roofline.card_label  # the card's name and power limit, as nvidia-smi gives them
 cuda_ms = roofline.event_ms  # mean device ms of fn over reps calls (CUDA events)
+queued_ms = roofline.queued_ms  # the same, the calls queued behind a sleeping kernel
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -372,37 +377,59 @@ def source_lumas(dev, n: int) -> torch.Tensor:
 
 
 def phase_warp(dev, results):
+    """K1's uint8 batch at the stock 4K shapes, luma and chroma, with one
+    rotation per frame and one per tile row, on the first 4 frames and on
+    the render's batch of 32: every launch bit for bit against its plain
+    version; the kernels line keeps the 32-frame launch, the main path's."""
     warper = stock_cameras()
     cfg = SyntheticSource.from_uri(SOURCE).config
     cam = cfg.camera()
-    rots_src = torch.from_numpy(cfg.rotations()[:WARP_FRAMES]).to(dev)
+    rots_src = torch.from_numpy(cfg.rotations()[:WARP_BATCH]).to(dev)
     planes = [render_frame(cam, r) for r in rots_src]
-    ys = torch.stack([p[0] for p in planes])
+    ys = torch.stack([p[0] for p in planes])[:, None]
     uv = torch.stack([torch.stack([p[1], p[2]]) for p in planes])
-    g = torch.Generator().manual_seed(11)
-    rots = so3.exp(torch.randn((WARP_FRAMES, 3), generator=g) * 0.02).to(dev)
+    del planes
     oh, ow = warper.out_h, warper.out_w
+    rows = row_stacks(dev, (WARP_BATCH,), num_tile_rows(oh), 19)
+    rows_c = warp_kernel.chroma_row_rotations(rows, num_tile_rows(oh // 2))
     modes = (
-        ("warp_luma", ys[:, None], warper.out_cam, warper.in_cam, (oh, ow), 0.0),
-        ("warp_chroma", uv, warper.out_half, warper.in_half, (oh // 2, ow // 2), 128.0),
+        ("warp_luma", ys, rows, warper.out_cam, warper.in_cam, (oh, ow), 0.0),
+        ("warp_chroma", uv, rows_c, warper.out_half, warper.in_half, (oh // 2, ow // 2), 128.0),
     )
-    for name, src, oc, ic, size, border in modes:
-        got = warp_kernel.warp_planes_u8(src, rots, oc, ic, size, border)
-        want = warp_kernel.warp_planes_u8_plain(src, rots, oc, ic, size, border)
-        torch.cuda.synchronize()
-        max_err, equal = u8_agreement(got, want)
-        ms = cuda_ms(lambda: warp_kernel.warp_planes_u8(src, rots, oc, ic, size, border), 20)
-        plain_ms = cuda_ms(
-            lambda: warp_kernel.warp_planes_u8_plain(src, rots, oc, ic, size, border), 3, 1)
-        t, c = src.shape[:2]
-        b = bound(src.numel() + rots.numel() * 4 + got.numel(),
-                  t * size[0] * size[1] * (warp_map_ops(ic) + c * WARP_TAP_OPS))
-        log(f"[K1 {name}] {tuple(src.shape)} -> {tuple(got.shape)}: max |diff| "
-            f"{max_err} count, equal {equal:.6f}; kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms per {WARP_FRAMES}-frame launch; bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-        check(max_err <= 1 and equal >= MIN_EQUAL, f"{name} disagrees with plain")
-        results[name] = dict(max_abs_err=float(max_err), ms=ms, plain_ms=plain_ms, **b)
+    for name, src_all, stack_all, oc, ic, size, border in modes:
+        for frames in (WARP_FRAMES, WARP_BATCH):
+            src, stack = src_all[:frames], stack_all[:frames]
+            timed = {}
+            for rs, rot in ((False, stack[:, 0].contiguous()), (True, stack.contiguous())):
+                kname = name + ("_rs" if rs else "")
+                kernel = cuda_lib.KERNELS[kname]
+                before = kernel.launches
+                got = warp_kernel.warp_planes_u8(src, rot, oc, ic, size, border)
+                check(kernel.launches == before + 1, f"{kname} was not the kernel launched")
+                want = warp_kernel.warp_planes_u8_plain(src, rot, oc, ic, size, border)
+                torch.cuda.synchronize()
+                max_err, equal = u8_agreement(got, want)
+                differ = int((got != want).sum())
+                del want
+                ms = cuda_ms(lambda: warp_kernel.warp_planes_u8(src, rot, oc, ic, size, border),
+                             20)
+                plain_ms = cuda_ms(lambda: warp_kernel.warp_planes_u8_plain(
+                    src, rot, oc, ic, size, border), 3, 1)
+                t, c = src.shape[:2]
+                b = bound(src.numel() + rot.numel() * 4 + got.numel(),
+                          t * size[0] * size[1] * (warp_map_ops(ic) + c * WARP_TAP_OPS))
+                del got
+                timed[rs] = ms
+                log(f"[K1 {kname}] {tuple(src.shape)} with {tuple(rot.shape)} rotations: "
+                    f"max |diff| {max_err} count, {differ} differing values; kernel {ms:.3f} "
+                    f"ms, plain {plain_ms:.3f} ms per {frames}-frame launch; bound "
+                    f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+                check(differ == 0, f"{kname} at {frames} frames is not bit for bit its plain version")
+                if frames == WARP_BATCH:
+                    results[kname] = dict(max_abs_err=float(max_err), ms=ms, plain_ms=plain_ms,
+                                          **b)
+            log(f"[K1 {name}] {frames} frames: per tile row / whole-frame "
+                f"{timed[True] / timed[False]:.4f}")
 
 
 def source_frame(dev, uri: str, t: int):
@@ -479,7 +506,7 @@ def phase_warp_one_frame(dev, results):
             f"count, equal {equal:.6f} against plain; {sim_err} count, equal "
             f"{sim_equal:.6f} against warp_similarity; kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms per launch; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-        check(max_err <= 1 and equal >= MIN_EQUAL, f"{name} disagrees with plain")
+        check(equal == 1.0, f"{name} is not bit for bit its plain version")
         check(sim_err <= 1 and sim_equal >= MIN_EQUAL,
               f"{name} disagrees with warp_similarity")
         results[name] = dict(max_abs_err=float(max_err), ms=ms, plain_ms=plain_ms, **b)
@@ -496,11 +523,12 @@ def row_stacks(dev, lead: tuple, ny: int, seed: int) -> torch.Tensor:
 
 
 def phase_warp_rs(dev, results):
-    """K1's per-tile-row rotation mode through its six entries at the
-    stock 4K shape, each against its plain version, timed in turns with
-    the same launch under whole-frame rotations (the mode's cost is that
-    difference: the bound counts the stack's bytes, under 0.1% of the
-    planes'), and the batch luma warp once with a short stack."""
+    """K1's per-tile-row rotation mode through its one-frame and float
+    entries at the stock 4K shape (the batch's in :func:`phase_warp`),
+    each against its plain version, timed in turns with the same launch
+    under whole-frame rotations (the mode's cost is that difference: the
+    bound counts the stack's bytes, under 0.1% of the planes'), and the
+    batch luma warp once with a short stack."""
     warper = stock_cameras()
     oh, ow = warper.out_h, warper.out_w
     ny, nyc = num_tile_rows(oh), num_tile_rows(oh // 2)
@@ -530,8 +558,6 @@ def phase_warp_rs(dev, results):
     u8_plain = lambda src, rot, geo: warp_kernel.warp_planes_u8_plain(src, rot, *geo)
     f32_plain = lambda src, rot, geo: warp_kernel.warp_planes_f32_plain(src, rot, *geo)
     cases = (
-        ("warp_luma_rs", "warp_luma", u8, u8_plain, ys, rows, luma, WARP_TAP_OPS),
-        ("warp_chroma_rs", "warp_chroma", u8, u8_plain, uv, rows_c, chroma, WARP_TAP_OPS),
         ("warp_yuv_luma_rs", None, lambda *a: u8(*a, kernels=one), u8_plain,
          ys[:1], rows[:1], luma, WARP_TAP_OPS),
         ("warp_yuv_chroma_rs", None, lambda *a: u8(*a, kernels=one), u8_plain,
@@ -550,7 +576,7 @@ def phase_warp_rs(dev, results):
         torch.cuda.synchronize()
         if got.dtype == torch.uint8:
             max_err, equal = u8_agreement(got, want)
-            agrees = max_err <= 1 and equal >= MIN_EQUAL
+            agrees = equal == 1.0  # bit for bit
             said = f"max |diff| {max_err} count, equal {equal:.6f}"
         else:
             max_err = float((got - want).abs().max())
@@ -586,7 +612,7 @@ def phase_warp_rs(dev, results):
     log(f"[K1 warp_luma_rs] a stack of {ny - RS_SHORT_BY} rotations for {ny} tile rows: "
         f"max |diff| {max_err} count, equal {equal:.6f} against plain; equal to the "
         f"stack padded with its last rotation: {torch.equal(got, full)}")
-    check(max_err <= 1 and equal >= MIN_EQUAL and torch.equal(got, full),
+    check(equal == 1.0 and torch.equal(got, full),
           "the clipped row index disagrees")
 
 
@@ -778,7 +804,7 @@ def compare_lk_levels(tag, levels, pts, valid, launch, plain, iters=LK_ITERS):
             f"{int(both.sum())} tracked")
         max_err, worst_agree = max(max_err, err), min(worst_agree, agree)
         if lvl == 0:
-            timing = (cuda_ms(lambda: launch(prev, nxt, pf, pi), 20),
+            timing = (queued_ms(lambda: launch(prev, nxt, pf, pi), LK_REPS),
                       cuda_ms(lambda: plain(prev, nxt, pf, pi), 3, 1),
                       lk_bound(pf.shape[0], iters))
         flow = k[:, :2] * scale
@@ -1772,31 +1798,6 @@ def band_bound(interp, projection, frame, band, rot, oc, ic, size, n, off) -> di
     coords = warp_kernel.band_coords(rot, oc, ic, size, n, off)
     rows = source_rows_reached(coords, *frame.shape, interp)
     return dict(frames_bound(interp, projection, frame[:rows], band, rot, ic), src_rows=rows)
-
-
-def queued_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls queued behind a
-    sleeping kernel, timed with CUDA events: the card starts the calls
-    only once the host has enqueued them all, so the host's time per
-    call, which events around calls shorter than it would count, is left
-    out. Fails where the host took longer to enqueue than the sleep."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    slept, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    t0 = time.perf_counter()
-    slept.record()
-    torch.cuda._sleep(QUEUE_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    sleep_ms = slept.elapsed_time(start)
-    check(host_ms < sleep_ms, f"the host enqueued in {host_ms:.3f} ms, longer than the "
-          f"{sleep_ms:.3f} ms sleep ahead of it")
-    return start.elapsed_time(end) / reps
 
 
 def launched_alone(name: str, fn):

@@ -588,3 +588,86 @@ def test_luma_diag_builds_match_their_plain_twins(cuda, diag):
     torch.cuda.synchronize()
     assert torch.equal(got, warp_kernel.warp_luma_batch_diag_plain(ys, rots, out_cam, in_cam,
                                                                    size, diag))
+
+
+@pytest.mark.parametrize("rs", [False, True])
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("frames", [1, 32])
+@pytest.mark.parametrize("out_w,out_h", [(4679, 3517), (321, 243), (4680, 3520)])
+def test_grouped_u8_kernel_is_bit_exact(cuda, out_w, out_h, frames, planes, rs):
+    """K1's uint8 kernel, several columns a thread, at output widths that
+    are not a multiple of its group (4679, 321) or are (4680), heights
+    that are not a multiple of 8, one frame and the render's 32, one and
+    two planes, one rotation per frame and one per tile row: 0 differing
+    values from its plain version. A 4K source (its half for two planes)."""
+    in_w, in_h = (3840, 2880) if planes == 1 else (1920, 1440)
+    in_cam = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (3840, 2880))
+    out_cam = get_output_camera(in_cam, zoom=1.0 / 1.2)
+    if planes == 2:
+        in_cam, out_cam = scaled_camera(in_cam, 0.5), scaled_camera(out_cam, 0.5)
+    g = torch.Generator().manual_seed(out_w + frames + planes)
+    src = torch.randint(0, 256, (frames, planes, in_h, in_w), generator=g,
+                        dtype=torch.uint8).to(cuda)
+    ny = -(-out_h // 8)
+    rots = row_stack(g, (frames,), ny, cuda) if rs else \
+        so3.exp(torch.randn((frames, 3), generator=g) * 0.05).to(cuda)
+    border = 0.0 if planes == 1 else 128.0
+    kernel = warp_kernel.BATCH_KERNELS[rs][planes - 1]
+    before = kernel.launches
+    got = warp_kernel.warp_planes_u8(src, rots, out_cam, in_cam, (out_h, out_w), border)
+    assert kernel.launches == before + 1
+    for t in range(frames):  # the plain version a frame at a time: 4K floats are large
+        want = warp_kernel.warp_planes_u8_plain(src[t:t + 1], rots[t:t + 1], out_cam, in_cam,
+                                                (out_h, out_w), border)
+        torch.cuda.synchronize()
+        assert torch.equal(got[t:t + 1], want), f"frame {t}"
+
+
+@pytest.mark.parametrize("out_w,out_h", [(321, 243), (4679, 3517)])
+@pytest.mark.parametrize("diag", [1, 2, 3])
+def test_luma_diag_builds_at_ragged_widths(cuda, diag, out_w, out_h):
+    """Each diagnostic build of the grouped uint8 kernel against its plain
+    twin at widths that are not a multiple of the group."""
+    in_cam = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (3840, 2880))
+    out_cam = get_output_camera(in_cam, zoom=1.0 / 1.2)
+    g = torch.Generator().manual_seed(diag + out_w)
+    ys = torch.randint(0, 256, (3, 2880, 3840), generator=g, dtype=torch.uint8).to(cuda)
+    rots = so3.exp(torch.randn((3, 3), generator=g) * 0.03).to(cuda)
+    got = warp_kernel.warp_luma_batch_diag(ys, rots, out_cam, in_cam, (out_h, out_w), diag)
+    torch.cuda.synchronize()
+    assert torch.equal(got, warp_kernel.warp_luma_batch_diag_plain(
+        ys, rots, out_cam, in_cam, (out_h, out_w), diag))
+
+
+@pytest.mark.parametrize("form", ["pairs", "frame"])
+@pytest.mark.parametrize("m", [1, 3, 200, 3200])
+def test_lk_kernel_point_counts(cuda, form, m):
+    """K2 at 1, 3, 200 and 3200 points, the counts that choose its threads
+    per point, in both forms: status agreement >= 0.99 and flow within
+    0.01 px of the plain version where both track, chip_smoke.py's bars."""
+    frames = shifted_chunk(cuda, [(0.0, 0.0), (2.25, -1.5), (4.5, 1.0)])
+    g = torch.Generator().manual_seed(m)
+    pts = torch.stack([torch.rand(m, generator=g) * 600 + 20,
+                       torch.rand(m, generator=g) * 440 + 20], dim=-1).to(cuda)
+    guess = (torch.randn((m, 2), generator=g) * 0.5).to(cuda)
+    if form == "pairs":
+        staged = lk_kernel.stage_pyramid_pairs(frames)[0]
+        band = torch.randint(0, 2, (m,), generator=g).to(cuda)
+        pf, pi, ok = lk_kernel.level_args(staged, pts, band, guess)
+        before = lk_kernel.LK_LEVEL.launches
+        got = lk_kernel.lk_level(staged, pf, pi, 8)
+        assert lk_kernel.LK_LEVEL.launches == before + 1
+        want = lk_kernel.lk_level_plain(staged, staged, pf, pi, 8)
+    else:
+        prev, nxt = (lk_kernel.stage_pyramid(f)[0] for f in frames[:2])
+        pf, pi, ok = lk_kernel.level_args(prev, pts, None, guess)
+        before = lk_kernel.LK_LEVEL_FRAME.launches
+        got = lk_kernel.lk_level_frame(prev, nxt, pf, pi, 8)
+        assert lk_kernel.LK_LEVEL_FRAME.launches == before + 1
+        want = lk_kernel.lk_level_plain(prev, nxt, pf, pi, 8)
+    torch.cuda.synchronize()
+    gst, wst = (got[:, 2] > 0.5) & ok, (want[:, 2] > 0.5) & ok
+    assert float((gst == wst).float().mean()) >= 0.99
+    both = gst & wst
+    assert int(both.sum()) >= m // 2
+    assert float((got[:, :2] - want[:, :2])[both].abs().max()) <= 0.01

@@ -18,12 +18,14 @@ from test_torch_pipeline import ANGLE_TOL_DEG, PRESET, angle_deg
 from video_annotator_tpu.camera import CameraPreset as JCameraPreset
 from video_annotator_tpu.pipeline.render import RenderOptions as JRenderOptions
 from video_annotator_tpu.pipeline.render import render as jrender
+from video_annotator_tpu_torch import so3
 from video_annotator_tpu_torch.camera import CameraPreset
 from video_annotator_tpu_torch.io.video import open_reader
 from video_annotator_tpu_torch.pipeline import render as trender
 from video_annotator_tpu_torch.pipeline import streaming
 from video_annotator_tpu_torch.pipeline.streaming import render_streaming
 from video_annotator_tpu_torch.pipeline.trajectory import Trajectory, trajectory_path
+from video_annotator_tpu_torch.smoothing.savgol import savgol_weights, sg_conv
 
 SRC = "synthetic://shaky?w=256&h=192&n=24&seed=5&shake=0.004&pan=0.0"
 OPTS = dict(preset=CameraPreset.GOPRO_H4B_WIDE43_MEASURED, warp_batch=5)
@@ -84,6 +86,47 @@ def test_streaming_matches_two_phase(tmp_path, kw):
     t_one = Trajectory.load(trajectory_path(one))
     assert t_one.num_frames == 24
     np.testing.assert_array_equal(t_one.params, t_two.params)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(stabilise="smooth", stabilise_radius=8, analysis_mode="paired", analysis_chunk=5),
+    dict(stabilise="smooth", stabilise_radius=8, analysis_mode="tracked"),
+])
+def test_streaming_frames_equal_two_phase_exactly(tmp_path, kw):
+    """Savitzky-Golay streaming smooths the rotations the trajectory file
+    gives back, on the host, as the two-phase encode does: the same
+    corrections to the bit, so the same frames (a warp whose validity test
+    is discontinuous, the per-tile mip at the source edge, would otherwise
+    flip the odd pixel by tens of counts)."""
+    two, one = render_both(tmp_path, **kw)
+    for fa, fb in zip(frames(two), frames(one)):
+        for pa, pb in zip(fa, fb):
+            np.testing.assert_array_equal(pa, pb)
+
+
+@pytest.mark.parametrize("lock", [False, True])
+def test_window_corrections_do_not_depend_on_the_window_length(lock):
+    """Each frame's correction has the same bits from a streaming batch's
+    window as from the whole clip's."""
+    g = np.random.default_rng(3)
+    t, radius = 40, 8
+    meas = so3.exp(torch.from_numpy(g.standard_normal((t, 3)).astype(np.float32) * 0.05))
+    fn = trender.make_window_corrections(radius, trender.RenderOptions(
+        stabilise="smooth", horizon_lock=lock), None)
+    clamp = lambda ks: meas[[min(max(k, 0), t - 1) for k in ks]]  # noqa: E731
+    full = fn(clamp(range(-radius, t + radius)))
+    for t0, n in ((0, 5), (3, 7), (16, 16), (35, 5)):
+        part = fn(clamp(range(t0 - radius, t0 + n + radius)))
+        assert torch.equal(part, full[t0:t0 + n])
+
+
+def test_sg_conv_does_not_depend_on_the_block_length():
+    g = np.random.default_rng(4)
+    x = torch.from_numpy(g.standard_normal((60, 9)).astype(np.float32))
+    w = torch.from_numpy(savgol_weights(10))
+    full = sg_conv(x, w)
+    for a, b in ((0, 21), (5, 40), (17, 60)):
+        assert torch.equal(sg_conv(x[a:b], w), full[a:b - 20])
 
 
 def test_streaming_short_clip_shrinks_radius(tmp_path):

@@ -18,32 +18,55 @@
 // the clamp and the status are the TPU kernel's exactly; samples outside
 // the window's 256 columns read 0, as there.
 //
-// Bound on Hopper: latency of the dependent per-iteration gathers
-// (4 bytes per template element per iteration, 8 iterations) and the
-// warp reductions between iterations; the arithmetic is small. Design:
-// one warp per point, 4 points per 128-thread block. Each lane owns 14 of
-// the 441 template elements and keeps their template value and gradients
-// in registers; the bilinear template rows are built once in shared
-// memory; sums reduce with xor shuffles, which leave the identical total
-// in every lane, so the Newton update is uniform across the warp and no
-// block-level barrier is needed.
+// Bound on Hopper: latency. A point's work is small (441 template
+// elements, 8 Newton iterations of a bilinear resample and two sums) and
+// every iteration depends on the last; the per-frame form has 200 points.
+// At one warp per point, 4 points per block, each lane re-read its 14
+// elements' four bytes through Window::at's clamp, range test and 64-bit
+// index per iteration (56 dependent loads), and the per-frame launch was
+// 50 blocks on 132 SMs.
+//
+// Design: the next frame's 48 x 256 window, the whole of what the
+// iterations can read, is copied once per point into shared memory
+// (cp.async, 16 bytes a copy, rows padded to 288 bytes so that the two or
+// three template rows a warp reads fall in distinct banks), as the TPU
+// kernel fetched it once. The copy runs while the template is built from
+// the prev frame. The iterations then read shared memory without clamps:
+// the drift clamp keeps oy in [1, 24] and ox in [1, 233], so every read
+// lies in rows [1, 45] and columns [1, 254] of the window (pinned by
+// tests/test_torch_lk_reach.py on the plain version). The template's
+// reads keep Window::at's clamps, since they may leave the window. A
+// point takes TPP threads, 128 or 64, chosen per launch from m
+// (threads_per_point): few points spread over more threads. Each thread
+// owns ceil(441 / TPP) template elements in registers. Sums reduce with
+// xor shuffles inside each warp, then through per-warp partials in shared
+// memory, double-buffered by iteration so one barrier an iteration
+// suffices; every thread adds the partials in the same order, so the
+// Newton update is uniform across the point's threads. On an H100 (700 W)
+// at level 0 of the main paths this takes the per-frame launch (200
+// points) to 0.28 of the one-warp-a-point kernel and the pairs launch
+// (3200) to 0.52 (tools/time_warp_builds.py, both sources timed in
+// turns); both now sit near the card's launch floor. Copying the 22 x 22
+// neighbourhood an iteration reads, every iteration, took 1.31 and 1.35
+// times as long.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int WIN = 21;
-constexpr int NEL = WIN * WIN;            // 441 template elements
-constexpr int PER_LANE = (NEL + 31) / 32;  // 14
+constexpr int NEL = WIN * WIN;             // 441 template elements
 constexpr int TROWS = WIN + 3;             // 24 bilinear template rows (halo)
 constexpr int TCOLS = WIN + 2;             // 23 template columns (halo)
 constexpr int WROWS = 48;                  // window rows (12 words x 4)
 constexpr int WCOLS = 256;                 // window columns (2 strips)
+constexpr int SPITCH = WCOLS + 32;         // shared bytes per window row
 constexpr float Y_HI = 4 * 12 - WIN - 3;   // 24
 constexpr float X_HI = WCOLS - WIN - 2;    // 233
 constexpr float MIN_EIG_THRESHOLD = 1e-4f;
-constexpr int POINTS_PER_BLOCK = 4;
+constexpr int BLOCK = 128;                 // threads per block
 
 struct Window {
   const uint8_t* base;  // window row 0, column 0
@@ -68,36 +91,81 @@ __device__ __forceinline__ int floor_index(float v) {
   return (int)floorf(fminf(fmaxf(v, -1024.0f), 1024.0f));
 }
 
+// The shared state of the points of one block.
+template <int TPP>
+struct Shared {
+  static constexpr int POINTS = BLOCK / TPP;
+  static constexpr int WARPS = TPP / 32;
+  uint8_t win[POINTS][WROWS * SPITCH];     // the next window, 16-byte rows
+  float rows[POINTS][TROWS * TCOLS];       // the bilinear template rows
+  float part[POINTS][2][WARPS][3];         // per-warp partial sums
+};
+
+// The N sums of a point's TPP threads, the same value in each of them.
+// `buf` alternates between calls, so one barrier a call suffices.
+template <int TPP, int N>
+__device__ __forceinline__ void point_sum(float (&v)[N], float (&part)[2][TPP / 32][3],
+                                          int buf, int tid) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) v[n] = warp_sum(v[n]);
+  if ((tid & 31) == 0) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) part[buf][tid >> 5][n] = v[n];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    float s = part[buf][0][n];
+#pragma unroll
+    for (int w = 1; w < TPP / 32; ++w) s += part[buf][w][n];
+    v[n] = s;
+  }
+}
+
 // prev/next: the staged levels the prev and next windows are read from
 // (the same stack for the pairs form); pi's rows and columns are relative
-// to them.
-__global__ void lk_level_kernel(const uint8_t* __restrict__ prev_base,
-                                const uint8_t* __restrict__ next_base, int pitch,
-                                const float* __restrict__ pf,
-                                const int* __restrict__ pi,
-                                float* __restrict__ out, int m, int iters) {
-  __shared__ float rows_s[POINTS_PER_BLOCK][TROWS * TCOLS];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * POINTS_PER_BLOCK + warp;
-  if (i >= m) return;  // whole warp leaves together
+// to them. TPP threads per point, BLOCK / TPP points per block.
+template <int TPP>
+__global__ void __launch_bounds__(BLOCK) lk_level_kernel(
+    const uint8_t* __restrict__ prev_base, const uint8_t* __restrict__ next_base, int pitch,
+    const float* __restrict__ pf, const int* __restrict__ pi, float* __restrict__ out, int m,
+    int iters) {
+  constexpr int PER = (NEL + TPP - 1) / TPP;  // template elements per thread
+  extern __shared__ __align__(16) uint8_t smem[];
+  Shared<TPP>& sh = *reinterpret_cast<Shared<TPP>*>(smem);
+  const int slot = threadIdx.x / TPP;
+  const int tid = threadIdx.x % TPP;
+  // A slot past the last point repeats it and writes nothing, so every
+  // thread of the block reaches the barriers.
+  const int point = (int)blockIdx.x * Shared<TPP>::POINTS + slot;
+  const bool live = point < m;
+  const int i = min(point, m - 1);
 
   const float gx0 = pf[i * 6 + 0], gy0 = pf[i * 6 + 1];
   const float ryp = pf[i * 6 + 2], ixp = pf[i * 6 + 3];
   const float ryn = pf[i * 6 + 4], ixn = pf[i * 6 + 5];
   const Window prev{prev_base + (size_t)pi[i * 4 + 0] * pitch + pi[i * 4 + 1], pitch};
-  const Window next{next_base + (size_t)pi[i * 4 + 2] * pitch + pi[i * 4 + 3], pitch};
+  const uint8_t* next = next_base + (size_t)pi[i * 4 + 2] * pitch + pi[i * 4 + 3];
+
+  // The next window into shared memory, 16 bytes a copy, in flight while
+  // the template is built.
+  uint8_t* win = sh.win[slot];
+  for (int c = tid; c < WROWS * WCOLS / 16; c += TPP) {
+    const int y = c / (WCOLS / 16), x = (c % (WCOLS / 16)) * 16;
+    __pipeline_memcpy_async(win + y * SPITCH + x, next + (size_t)y * pitch + x, 16);
+  }
+  __pipeline_commit();
 
   // Template rows: rows[k][l] = image at (ryp + k, ixp - 1 + l), bilinear,
   // x blended first (as the TPU kernel's sample_rows), then y.
-  float* rows = rows_s[warp];
+  float* rows = sh.rows[slot];
   {
     const int iy = floor_index(ryp);
     const float fy = ryp - floorf(ryp);
     const float ix = ixp - 1.0f;
     const int ixi = floor_index(ix);
     const float fx = ix - floorf(ix);
-    for (int e = lane; e < TROWS * TCOLS; e += 32) {
+    for (int e = tid; e < TROWS * TCOLS; e += TPP) {
       const int k = e / TCOLS, l = e % TCOLS;
       const int y = iy + k, x = ixi + l;
       const float s0 = prev.at(y, x) * (1.0f - fx) + prev.at(y, x + 1) * fx;
@@ -105,14 +173,17 @@ __global__ void lk_level_kernel(const uint8_t* __restrict__ prev_base,
       rows[e] = s0 * (1.0f - fy) + s1 * fy;
     }
   }
-  __syncwarp();
+  __pipeline_wait_prior(0);
+  __syncthreads();
 
-  float tpl[PER_LANE], gxr[PER_LANE], gyr[PER_LANE];
-  float sxx = 0.0f, sxy = 0.0f, syy = 0.0f;
+  float tpl[PER], gxr[PER], gyr[PER];
+  int woff[PER];  // the element's byte in the window, from the iteration's corner
+  float g[3] = {0.0f, 0.0f, 0.0f};  // sum gx gx, gx gy, gy gy
 #pragma unroll
-  for (int j = 0; j < PER_LANE; ++j) {
-    const int e = lane + 32 * j;
+  for (int j = 0; j < PER; ++j) {
+    const int e = tid + TPP * j;
     tpl[j] = gxr[j] = gyr[j] = 0.0f;
+    woff[j] = 0;
     if (e < NEL) {
       const int k = e / WIN, l = e % WIN;
       const float* t = rows + k * TCOLS + l;
@@ -125,12 +196,14 @@ __global__ void lk_level_kernel(const uint8_t* __restrict__ prev_base,
       tpl[j] = mrow[1];
       gxr[j] = gx;
       gyr[j] = gy;
-      sxx += gx * gx;
-      sxy += gx * gy;
-      syy += gy * gy;
+      woff[j] = k * SPITCH + l;
+      g[0] += gx * gx;
+      g[1] += gx * gy;
+      g[2] += gy * gy;
     }
   }
-  const float gxx = warp_sum(sxx), gxy = warp_sum(sxy), gyy = warp_sum(syy);
+  point_sum<TPP>(g, sh.part[slot], 0, tid);
+  const float gxx = g[0], gxy = g[1], gyy = g[2];
   const float det = gxx * gyy - gxy * gxy;
   const float trace = gxx + gyy;
   const float min_eig = (trace - sqrtf(fmaxf(trace * trace - 4.0f * det, 0.0f))) * 0.5f;
@@ -138,31 +211,30 @@ __global__ void lk_level_kernel(const uint8_t* __restrict__ prev_base,
 
   float vx = gx0, vy = gy0;
   for (int it = 0; it < iters; ++it) {
+    // The clamps keep every read in rows [1, 45] and columns [1, 254].
     const float oy = fminf(fmaxf((ryn + 1.0f) + (vy - gy0), 1.0f), Y_HI);
     const float ox = fminf(fmaxf(ixn + (vx - gx0), 1.0f), X_HI);
     const int iy = (int)floorf(oy), ixi = (int)floorf(ox);
     const float fy = oy - floorf(oy), fx = ox - floorf(ox);
-    float bx = 0.0f, by = 0.0f;
+    const uint8_t* w = win + iy * SPITCH + ixi;
+    float b[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < PER_LANE; ++j) {
-      const int e = lane + 32 * j;
-      if (e < NEL) {
-        const int k = e / WIN, l = e % WIN;
-        const int y = iy + k, x = ixi + l;
-        const float c0 = next.at(y, x) * (1.0f - fx) + next.at(y, x + 1) * fx;
-        const float c1 = next.at(y + 1, x) * (1.0f - fx) + next.at(y + 1, x + 1) * fx;
+    for (int j = 0; j < PER; ++j) {
+      if (tid + TPP * j < NEL) {
+        const uint8_t* q = w + woff[j];
+        const float c0 = (float)q[0] * (1.0f - fx) + (float)q[1] * fx;
+        const float c1 = (float)q[SPITCH] * (1.0f - fx) + (float)q[SPITCH + 1] * fx;
         const float r = (c0 * (1.0f - fy) + c1 * fy) - tpl[j];
-        bx += r * gxr[j];
-        by += r * gyr[j];
+        b[0] += r * gxr[j];
+        b[1] += r * gyr[j];
       }
     }
-    bx = warp_sum(bx);
-    by = warp_sum(by);
-    vx -= (gyy * bx - gxy * by) * inv_det;
-    vy -= (gxx * by - gxy * bx) * inv_det;
+    point_sum<TPP>(b, sh.part[slot], (it + 1) & 1, tid);
+    vx -= (gyy * b[0] - gxy * b[1]) * inv_det;
+    vy -= (gxx * b[1] - gxy * b[0]) * inv_det;
   }
 
-  if (lane == 0) {
+  if (live && tid == 0) {
     const float oy_want = (ryn + 1.0f) + (vy - gy0);
     const float ox_want = ixn + (vx - gx0);
     const bool unsat = oy_want >= 1.0f && oy_want <= Y_HI && ox_want >= 1.0f &&
@@ -174,16 +246,40 @@ __global__ void lk_level_kernel(const uint8_t* __restrict__ prev_base,
   }
 }
 
+// Threads per point for a launch of m points: 128 while one block a point
+// fills the card at most twice over, else 64 (two points a block). On an
+// H100 at the main paths' shapes 128 took 0.0074 ms for 200 points against
+// 0.0088 with 64, and 64 took 0.0318 ms for 3200 against 0.0334 with 128
+// (32: 0.0119, 0.0413; tools/time_warp_builds.py).
+int threads_per_point(int m) { return m <= 2 * 132 * 4 ? 128 : 64; }
+
+template <int TPP>
+int launch_tpp(const uint8_t* prev, const uint8_t* next, int pitch, const float* pf,
+               const int* pi, float* out, int m, int iters, cudaStream_t stream) {
+  constexpr int points = BLOCK / TPP;
+  const int bytes = static_cast<int>(sizeof(Shared<TPP>));
+  cudaError_t err = cudaFuncSetAttribute(lk_level_kernel<TPP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lk_level_kernel<TPP><<<(m + points - 1) / points, BLOCK, bytes, stream>>>(
+      prev, next, pitch, pf, pi, out, m, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch(const void* prev, const void* next, int pitch, const void* pf,
            const void* pi, void* out, int m, int iters, void* stream) {
   if (m <= 0) return 0;
-  const dim3 block(32 * POINTS_PER_BLOCK);
-  const dim3 grid((m + POINTS_PER_BLOCK - 1) / POINTS_PER_BLOCK);
-  lk_level_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(prev), static_cast<const uint8_t*>(next), pitch,
-      static_cast<const float*>(pf), static_cast<const int*>(pi),
-      static_cast<float*>(out), m, iters);
-  return static_cast<int>(cudaGetLastError());
+  // The window copies take 16-byte aligned rows.
+  if (pitch % 16 != 0 || reinterpret_cast<uintptr_t>(next) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* p = static_cast<const uint8_t*>(prev);
+  const auto* n = static_cast<const uint8_t*>(next);
+  const auto* f = static_cast<const float*>(pf);
+  const auto* k = static_cast<const int*>(pi);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  return threads_per_point(m) == 128 ? launch_tpp<128>(p, n, pitch, f, k, o, m, iters, s)
+                                     : launch_tpp<64>(p, n, pitch, f, k, o, m, iters, s);
 }
 
 }  // namespace

@@ -793,7 +793,12 @@ def make_window_corrections(radius: int, options: RenderOptions,
 
     The two-phase path calls it with the whole replicate-padded
     trajectory, the streaming path per emitted batch with clamp-replicated
-    neighbours, so the two cannot diverge. ``--smoother kalman`` is the
+    neighbours, so the two cannot diverge: the window is computed on the
+    host (T x 9 floats), where the filter, the projection and the products
+    give each frame the same bits in a window of any length. On the card
+    the batched SVD and reductions need not, and a correction that moves
+    in its last bit flips the odd pixel where a warp's validity test
+    is discontinuous (the per-tile mip's border at the source edge). ``--smoother kalman`` is the
     fixed-lag form here: the filter runs forward over the whole window
     (the ``radius`` past frames are its burn-in) and RTS backward from the
     window's end, so each frame is smoothed with ``radius`` frames of
@@ -806,6 +811,9 @@ def make_window_corrections(radius: int, options: RenderOptions,
     up = torch.from_numpy(_up_vector(up0))
 
     def window_corr(window: torch.Tensor) -> torch.Tensor:
+        return host_corr(window.cpu()).to(window.device)
+
+    def host_corr(window: torch.Tensor) -> torch.Tensor:
         measured = window[radius: window.shape[0] - radius]
         if options.stabilise == "none":
             virtual = measured

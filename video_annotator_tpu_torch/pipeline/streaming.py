@@ -167,7 +167,10 @@ def render_streaming(source: str, dest: Optional[str],
         window = torch.stack([rots[min(max(k, 0), last_i)]
                               for k in range(t0 - radius_eff, t0 + batch + radius_eff)])
         with prof.stage("smooth"):
-            corr = batch_corr(window)
+            # The rotations as the trajectory file gives them back to the
+            # two-phase encode (exp of the saved log, on the host), so both
+            # paths smooth the same bits and render the same frames.
+            corr = batch_corr(so3.exp(so3.log(window).cpu()))
         ys, us, vs = zip(*([frames[i] for i in range(n)] + [frames[n - 1]] * (batch - n)))
         with prof.stage("warp"):
             outs = warper.warp_yuv_batch(ys, us, vs, corr)

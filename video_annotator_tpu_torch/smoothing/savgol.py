@@ -4,7 +4,10 @@ Port of ``video_annotator_tpu/smoothing/savgol.py`` (``savgol_weights``,
 ``sg_conv``, ``smooth_rotations``): the least-squares polynomial-fit
 weights over a centred window, applied to each of the 9 rotation-matrix
 entries of a replicate-padded trajectory. The convolution is a sliding-window sum of
-elementwise products (no cuDNN, hence no TF32).
+elementwise products (no cuDNN, hence no TF32), taken in float64 and
+added tap by tap in a fixed order, then rounded once to float32: an
+output entry has the same bits whatever the length of the block it is
+computed in (a streaming batch, the whole clip, a shard).
 """
 
 from __future__ import annotations
@@ -33,9 +36,16 @@ def savgol_weights(radius: int, order: int = 2, pos: int = 0,
 def sg_conv(padded: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(T + 2r, K) replicate-padded block, (2r + 1,) weights -> (T, K):
     ``out[t] = sum_j w[j] padded[t + j]`` (cross-correlation, like XLA's
-    convolution)."""
-    windows = padded.unfold(0, w.shape[0], 1)  # (T, K, 2r + 1)
-    return (windows * w.to(padded.device)).sum(dim=-1)
+    convolution), in float64 summed over j in order, then rounded to the
+    block's type: a float32 reduction over an unfolded window sums in an
+    order that depends on T."""
+    x = padded.to(torch.float64)
+    w = w.to(device=padded.device, dtype=torch.float64)
+    t = padded.shape[0] - w.shape[0] + 1
+    out = x[:t] * w[0]
+    for j in range(1, w.shape[0]):
+        out = out + x[j:j + t] * w[j]
+    return out.to(padded.dtype)
 
 
 def smooth_rotations(rotations: torch.Tensor, radius: int, order: int = 2) -> torch.Tensor:

@@ -92,6 +92,10 @@ DIAG_BUILDS = {"full": 0, "no_taps": warp_kernel.DIAG_NO_TAPS,
                "no_map_no_taps": warp_kernel.DIAG_NO_MAP | warp_kernel.DIAG_NO_TAPS}
 REPS = 3
 K1_REPS = 10
+# Cycles of the sleeping kernel that queued_ms puts ahead of the calls it
+# times: about 10 ms at the H100's clocks, for calls that take the host
+# about 0.1 ms each.
+QUEUE_CYCLES = 20_000_000
 
 
 def event_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -105,6 +109,32 @@ def event_ms(fn, reps: int, warmup: int = 2) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls queued behind a
+    sleeping kernel, timed with CUDA events: the card starts the calls
+    only once the host has enqueued them all, so the host's time per
+    call, which events around calls shorter than it would count, is left
+    out. Raises where the host took longer to enqueue than the sleep."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    slept, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    t0 = time.perf_counter()
+    slept.record()
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = slept.elapsed_time(start)
+    if host_ms >= sleep_ms:
+        raise RuntimeError(f"the host enqueued in {host_ms:.3f} ms, longer than the "
+                           f"{sleep_ms:.3f} ms sleep ahead of it")
     return start.elapsed_time(end) / reps
 
 
