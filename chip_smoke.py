@@ -18,7 +18,7 @@ the last line is printed):
    per frame and one per tile row, on 4 and on 32 4K frames (the render's
    batch), each launch with 0 differing values from its plain version;
    K1's float mode on one 4K luma
-   plane and on the two chroma planes of one frame; K1's one-frame uint8
+   plane and on the two chroma planes of one frame (0 differing values); K1's one-frame uint8
    mode over identity pinhole cameras with a similarity matrix (0
    differing values from its plain version, and held within one count of
    ``warp_similarity``); K3 and K2's pairs form on one 17-frame LK
@@ -35,8 +35,8 @@ the last line is printed):
    per-tile mip (``--prefilter auto --scale 0.4``: a 3840x2880 source to
    1872x1408) modes alone through every entry, with one rotation per frame
    and one per tile row, then bicubic and the combinations the renders of
-   3l launch; each counted under its own kernel object alone: the largest
-   difference and the number of differing values, the kernel timed alone
+   3l launch; each counted under its own kernel object alone, with 0
+   differing values from its plain version, the kernel timed alone
    on prepared levels (the time to build the levels logged beside it).
    K1's float frame batch (row 6) at 8 4K frames and its band (row 9) for
    2, 3 and 4 ranks, bilinear, bicubic and with an equirect output: every
@@ -213,7 +213,6 @@ TILTED_UP = (math.sin(math.radians(6.0)) * math.cos(math.radians(3.0)),
              math.sin(math.radians(3.0)))
 MAX_UP_DEG = 0.1
 GYRO_SAMPLES = 240_000  # 10 minutes at 400 Hz
-F32_ATOL = 1e-3  # float32 sums in another order over values up to 255
 WARP_FRAMES = 4
 WARP_BATCH = trender.DEFAULT_WARP_BATCH  # frames of a render's warp launch: 32
 LK_CHUNK = 17
@@ -458,6 +457,7 @@ def phase_warp_float(dev, results):
         want = warp_kernel.warp_planes_f32_plain(src, rot, oc, ic, size, border)
         torch.cuda.synchronize()
         max_err = float((got - want).abs().max())
+        differ = int((got != want).sum())
         ms = cuda_ms(lambda: entry(src, rot, oc, ic, size, border), 20)
         plain_ms = cuda_ms(
             lambda: warp_kernel.warp_planes_f32_plain(src, rot, oc, ic, size, border), 3, 1)
@@ -465,10 +465,10 @@ def phase_warp_float(dev, results):
         b = bound(4 * (src.numel() + rot.numel() + got.numel()),
                   size[0] * size[1] * (warp_map_ops(ic) + planes * WARP_TAP_OPS_F32))
         log(f"[K1 {name}] {tuple(src.shape)} f32 -> {tuple(got.shape)} f32: max |diff| "
-            f"{max_err:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per launch; "
-            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-        check(got.shape == want.shape and max_err <= F32_ATOL,
-              f"{name} disagrees with plain")
+            f"{max_err:.2e}, {differ} differing values; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms per launch; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        check(got.shape == want.shape and differ == 0,
+              f"{name} is not bit for bit its plain version")
         results[name] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, **b)
 
 
@@ -580,8 +580,8 @@ def phase_warp_rs(dev, results):
             said = f"max |diff| {max_err} count, equal {equal:.6f}"
         else:
             max_err = float((got - want).abs().max())
-            agrees = got.shape == want.shape and max_err <= F32_ATOL
-            said = f"max |diff| {max_err:.2e}"
+            agrees = got.shape == want.shape and torch.equal(got, want)  # bit for bit
+            said = f"max |diff| {max_err:.2e}, {int((got != want).sum())} differing values"
         whole = rot[..., 0, :, :].contiguous()  # one rotation per frame
         whole_a = cuda_ms(lambda: entry(src, whole, geo), 20)
         ms_a = cuda_ms(lambda: entry(src, rot, geo), 20)
@@ -738,9 +738,7 @@ def phase_warp_modes(dev, results):
                       f"{name}: launched {moved}")
                 diff = (got.to(torch.float32) - want.to(torch.float32)).abs()
                 max_err, differ = float(diff.max()), int((diff > 0).sum())
-                agrees = got.shape == want.shape and (
-                    max_err <= F32_ATOL if f32 else
-                    (max_err <= 1 and float((diff == 0).float().mean()) >= MIN_EQUAL))
+                agrees = got.shape == want.shape and differ == 0  # bit for bit
                 stacks = warp_kernel.level_stacks(src, levels, border)
                 out = torch.empty_like(got)
                 ms = cuda_ms(lambda: warp_kernel.launch_modes(
@@ -759,7 +757,7 @@ def phase_warp_modes(dev, results):
                     f"{max_err:.3g}, {differ} of {got.numel()} values differ; kernel "
                     f"{ms:.3f} ms, plain {plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms "
                     f"({b['bound_by']}){extra}")
-                check(agrees, f"{name} disagrees with plain")
+                check(agrees, f"{name} is not bit for bit its plain version")
                 results[name] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, **b)
 
 

@@ -86,7 +86,8 @@ def test_warp_kernel_matches_plain(cuda):
 @pytest.mark.parametrize("out_size", [None, (243, 321)])
 def test_float_warp_kernel_matches_plain(cuda, planes, border, out_size):
     """K1's float mode (one plane, and P planes through one map) at even
-    and odd output sizes; float32 sums in another order: 1e-3."""
+    and odd output sizes: bit for bit, the same roundings in the same
+    order as its plain version."""
     in_cam = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (320, 240))
     out_cam = get_output_camera(in_cam, zoom=1.0 / 1.2)
     size = out_size or (out_cam.height, out_cam.width)
@@ -103,7 +104,7 @@ def test_float_warp_kernel_matches_plain(cuda, planes, border, out_size):
     want = warp_kernel.warp_planes_f32_plain(src, rot, out_cam, in_cam, size, border)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (planes, *size)
-    assert float((got - want).abs().max()) <= 1e-3
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("out_size", [None, (242, 322), (360, 480)])
@@ -441,8 +442,8 @@ def test_warp_modes_match_plain(cuda, kind, plane, entry, rs):
     """Each of K1's modes (and all three at once) through each entry, with
     one rotation per frame and one per tile row, against its plain version
     on the same card inputs; each launch counted once, under its variant's
-    kernel object alone. Held to one count in uint8 (measured: 0 differing values at
-    4K, ``chip_smoke.py``) and to 1e-3 in float."""
+    kernel object alone. Bit for bit in uint8 and in float (measured: 0
+    differing values at 4K, ``chip_smoke.py``)."""
     from video_annotator_tpu_torch.ops.mip import tile_levels
 
     out_cam, in_cam, interp, mip = mode_geometry(kind)
@@ -477,14 +478,14 @@ def test_warp_modes_match_plain(cuda, kind, plane, entry, rs):
                warp_kernel.warp_planes_f32(src, rot, out_cam, in_cam, (oh, ow), border, **kw))
         want = warp_kernel.warp_planes_f32_plain(src, rot, out_cam, in_cam, (oh, ow), border,
                                                  interp, levels)
-        assert float((got - want).abs().max()) <= 1e-3
+        assert torch.equal(got, want)
     else:
         kernels = warp_kernel.BATCH_KERNELS if entry == "batch" else warp_kernel.ONE_FRAME_KERNELS
         got = warp_kernel.warp_planes_u8(src, rot, out_cam, in_cam, (oh, ow), border,
                                          kernels=kernels, **kw)
         want = warp_kernel.warp_planes_u8_plain(src, rot, out_cam, in_cam, (oh, ow), border,
                                                 interp, levels)
-        assert_u8_close(got, want)
+        assert torch.equal(got, want)
     moved = {n for n, k in warp_kernel.cuda_lib.KERNELS.items() if k.launches != before[n]}
     # A uint8 mip launch stages its levels through K3 first.
     assert moved == {obj.name} | ({"stage"} if mip and entry != "float" else set())
@@ -671,3 +672,205 @@ def test_lk_kernel_point_counts(cuda, form, m):
     both = gst & wst
     assert int(both.sum()) >= m // 2
     assert float((got[:, :2] - want[:, :2])[both].abs().max()) <= 0.01
+
+
+RAGGED = [(4679, 3517), (321, 243), (4680, 3520)]  # (out_w, out_h): groups cut short, and not
+
+
+def stock_geometry(out_w, planes):
+    """(in camera, out camera, source (h, w)) of the grouped kernels' tests:
+    a 4K fisheye to the stock canvas's camera for the 4K widths, a 320x240
+    one for 321, each halved for chroma (more than one plane)."""
+    in_w, in_h = (3840, 2880) if out_w > 1000 else (320, 240)
+    in_cam = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (in_w, in_h))
+    out_cam = get_output_camera(in_cam, zoom=1.0 / 1.2)
+    if planes > 1:
+        in_cam, out_cam = scaled_camera(in_cam, 0.5), scaled_camera(out_cam, 0.5)
+        in_w, in_h = in_w // 2, in_h // 2
+    return in_cam, out_cam, (in_h, in_w)
+
+
+@pytest.mark.parametrize("rs", [False, True])
+@pytest.mark.parametrize("planes", [1, 2, 3, 4])
+@pytest.mark.parametrize("out_w,out_h", RAGGED)
+def test_grouped_f32_kernel_is_bit_exact(cuda, out_w, out_h, planes, rs):
+    """K1's float kernel (rows 5, 7), several columns a thread, at output
+    widths that are not a multiple of its group (4679, 321) or are (4680),
+    one to four planes, one rotation per frame and one per tile row: equal
+    to its plain version bit for bit, on non-integer sources."""
+    in_cam, out_cam, (in_h, in_w) = stock_geometry(out_w, planes)
+    g = torch.Generator().manual_seed(out_w + 10 * planes + rs)
+    src = (torch.rand((planes, in_h, in_w), generator=g) * 255).to(cuda)
+    ny = -(-out_h // 8)
+    rot = row_stack(g, (), ny, cuda) if rs else \
+        so3.exp(torch.randn(3, generator=g) * 0.05).to(cuda)
+    border = 0.0 if planes == 1 else 128.0
+    kernel = (warp_kernel.FRAME_F32_KERNELS if planes == 1 else warp_kernel.PLANES_F32_KERNELS)[rs]
+    before = kernel.launches
+    got = (warp_kernel.warp_frame_f32(src[0], rot, out_cam, in_cam, (out_h, out_w), border)[None]
+           if planes == 1 else
+           warp_kernel.warp_planes_f32(src, rot, out_cam, in_cam, (out_h, out_w), border))
+    assert kernel.launches == before + 1
+    want = warp_kernel.warp_planes_f32_plain(src, rot, out_cam, in_cam, (out_h, out_w), border)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("frames", [1, 3, 8])
+@pytest.mark.parametrize("out_w,out_h", RAGGED)
+def test_grouped_f32_frame_batch_is_bit_exact(cuda, out_w, out_h, frames):
+    """K1's float frame batch (row 6) at the ragged widths, 1, 3 and 8
+    frames: bit for bit its plain version, frame 0 the one-frame launch."""
+    in_cam, out_cam, (in_h, in_w) = stock_geometry(out_w, 1)
+    g = torch.Generator().manual_seed(out_w + frames)
+    src = (torch.rand((frames, in_h, in_w), generator=g) * 255).to(cuda)
+    rots = so3.exp(torch.randn((frames, 3), generator=g) * 0.05).to(cuda)
+    size = (out_h, out_w)
+    got = warp_kernel.warp_frames_f32(src, rots, out_cam, in_cam, size)
+    for t in range(frames):  # the plain version a frame at a time: 4K floats are large
+        want = warp_kernel.warp_planes_f32_plain(src[t:t + 1], rots[t], out_cam, in_cam, size)
+        torch.cuda.synchronize()
+        assert torch.equal(got[t:t + 1], want), f"frame {t}"
+    assert torch.equal(got[0], warp_kernel.warp_frame_f32(src[0], rots[0], out_cam, in_cam, size))
+
+
+@pytest.mark.parametrize("nshards", [2, 3, 4])
+@pytest.mark.parametrize("out_w,out_h", RAGGED)
+def test_grouped_f32_bands_are_bit_exact(cuda, out_w, out_h, nshards):
+    """K1's float band (row 9) at the ragged widths for 2, 3 and 4 ranks:
+    each band bit for bit its plain version, counted under its object,
+    and the bands, concatenated and cropped, the one-frame launch (row 5)."""
+    in_cam, out_cam, (in_h, in_w) = stock_geometry(out_w, 1)
+    g = torch.Generator().manual_seed(out_w + nshards)
+    frame = (torch.rand((in_h, in_w), generator=g) * 255).to(cuda)
+    rot = so3.exp(torch.randn(3, generator=g) * 0.05).to(cuda)
+    size = (out_h, out_w)
+    rows = warp_kernel.band_tile_rows(out_h, nshards)
+    bands = []
+    for rank in range(nshards):
+        before = warp_kernel.WARP_BAND_F32.launches
+        band = warp_kernel.warp_frame_band_f32(frame, rot, out_cam, in_cam, size, nshards,
+                                               rank * rows)
+        assert warp_kernel.WARP_BAND_F32.launches == before + 1
+        assert torch.equal(band, warp_kernel.warp_frame_band_f32_plain(
+            frame, rot, out_cam, in_cam, size, nshards, rank * rows))
+        bands.append(band)
+    whole = warp_kernel.warp_frame_f32(frame, rot, out_cam, in_cam, size)
+    assert torch.equal(torch.cat(bands)[:out_h], whole)
+
+
+def fit_camera(in_cam, size, zoom, model):
+    """An output camera of ``size`` (h, w), centred, with the focal of the
+    fitted rectilinear camera scaled to that size and divided by
+    ``zoom``'s inverse: 0.8 sees past every edge of the source, 0.25
+    minifies it enough for the mip levels."""
+    from video_annotator_tpu_torch.camera import Camera
+
+    h, w = size
+    oc = get_output_camera(in_cam)
+    s = min(w / oc.width, h / oc.height) * zoom
+    return Camera.make(oc.fx * s, oc.fy * s, (w - 1) / 2, (h - 1) / 2, w, h, model)
+
+
+MODE_ENTRIES = ["batch_luma", "batch_chroma", "one_frame", "frame", "planes", "frames", "band"]
+# Every variant of csrc/warp_modes.cu through every entry that takes it:
+# the frame batch and the band take no mip, as in the JAX package.
+MODE_VARIANTS = [(interp, rays, mip, entry)
+                 for interp in ("bilinear", "bicubic", "lanczos")
+                 for rays in (False, True) for mip in (False, True)
+                 if (interp, rays, mip) != ("bilinear", False, False)
+                 for entry in MODE_ENTRIES if not (mip and entry in ("frames", "band"))]
+
+
+@pytest.mark.parametrize("interp,rays,mip,entry", MODE_VARIANTS)
+@pytest.mark.parametrize("out_w,out_h", RAGGED)
+def test_grouped_mode_kernel_is_bit_exact(cuda, out_w, out_h, interp, rays, mip, entry):
+    """K1's mode kernel (``csrc/warp_modes.cu``), several columns a thread,
+    in every interp x ray grid x mip variant through every entry (the
+    uint8 batch, luma and chroma, at 3 frames; the one-frame uint8 warp;
+    the float frame, three float planes, the float frame batch at 3 frames
+    and a band of 3 ranks, the last two without mip, as in the JAX package) at
+    the ragged widths: bit for bit its plain version, counted under its
+    variant's object. The maps reach past all four edges of the source
+    (mip: a quarter of the fitted focal, so the levels engage); the
+    chroma, one-frame and planes launches take one rotation per tile row.
+    A ray-grid batch runs the frame-inner loop."""
+    from video_annotator_tpu_torch.camera import CameraModel
+    from video_annotator_tpu_torch.ops.mip import tile_levels
+
+    chroma = entry in ("batch_chroma", "planes")
+    in_cam, _, (in_h, in_w) = stock_geometry(out_w, 2 if chroma else 1)
+    size = (out_h, out_w)
+    model = CameraModel.STEREOGRAPHIC if rays else CameraModel.RECTILINEAR
+    out_cam = fit_camera(in_cam, size, 0.25 if mip else 0.8, model)
+    levels = tile_levels(out_cam, in_cam, 8.0, size, interp, device=cuda) if mip else None
+    if mip:
+        assert levels.max_level >= 1
+    border = 128.0 if chroma else 0.0
+    planes = {"batch_chroma": 2, "planes": 3}.get(entry, 1)
+    t = {"batch_luma": 3, "batch_chroma": 3, "frames": 3}.get(entry, 1)
+    rs = entry in ("batch_chroma", "one_frame", "planes")
+    ny = -(-out_h // 8)
+    g = torch.Generator().manual_seed(out_w + MODE_ENTRIES.index(entry))
+    f32 = entry in ("frame", "planes", "frames", "band")
+    if f32:
+        src = (torch.rand((t * planes, in_h, in_w), generator=g) * 255).to(cuda)
+    else:
+        src = torch.randint(0, 256, (t, planes, in_h, in_w), generator=g,
+                            dtype=torch.uint8).to(cuda)
+    rot = (row_stack(g, (t,), ny, cuda) if rs else
+           so3.exp(torch.randn((t, 3), generator=g) * 0.05).to(cuda))
+    kw = dict(interp=interp)
+    suffix = warp_kernel.variant(out_cam, interp, levels)
+    counts = lambda: {n: k.launches for n, k in warp_kernel.cuda_lib.KERNELS.items()}
+    before = counts()
+    if entry == "frames":
+        whole = warp_kernel.WARP_FRAMES_F32
+        got = warp_kernel.warp_frames_f32(src, rot, out_cam, in_cam, size, border, **kw)
+        want = torch.cat([warp_kernel.warp_planes_f32_plain(src[i:i + 1], rot[i], out_cam, in_cam,
+                                                            size, border, interp)
+                          for i in range(t)])
+    elif entry == "band":
+        whole = warp_kernel.WARP_BAND_F32
+        rows = warp_kernel.band_tile_rows(out_h, 3)
+        bands = [(warp_kernel.warp_frame_band_f32(src[0], rot[0], out_cam, in_cam, size, 3,
+                                                  r * rows, border, **kw),
+                  warp_kernel.warp_frame_band_f32_plain(src[0], rot[0], out_cam, in_cam, size, 3,
+                                                        r * rows, border, interp))
+                 for r in range(3)]
+        assert all(torch.equal(b, plain_band) for b, plain_band in bands)
+        got = torch.cat([b for b, _ in bands])[:out_h]
+        want = warp_kernel.warp_planes_f32_plain(src, rot[0], out_cam, in_cam, size, border,
+                                                 interp)[0]
+    elif f32:
+        kernels = warp_kernel.FRAME_F32_KERNELS if planes == 1 else warp_kernel.PLANES_F32_KERNELS
+        whole = kernels[rs]
+        got = (warp_kernel.warp_frame_f32(src[0], rot[0], out_cam, in_cam, size, border,
+                                          levels=levels, **kw)[None]
+               if planes == 1 else
+               warp_kernel.warp_planes_f32(src, rot[0], out_cam, in_cam, size, border,
+                                           levels=levels, **kw))
+        want = warp_kernel.warp_planes_f32_plain(src, rot[0], out_cam, in_cam, size, border,
+                                                 interp, levels)
+    else:
+        kernels = warp_kernel.ONE_FRAME_KERNELS if entry == "one_frame" else \
+            warp_kernel.BATCH_KERNELS
+        whole = kernels[rs][planes - 1]
+        got = warp_kernel.warp_planes_u8(src, rot, out_cam, in_cam, size, border, kernels,
+                                         levels=levels, **kw)
+        want = torch.cat([warp_kernel.warp_planes_u8_plain(src[i:i + 1], rot[i:i + 1], out_cam,
+                                                           in_cam, size, border, interp, levels)
+                          for i in range(t)])
+    torch.cuda.synchronize()
+    launched = {n: c - before.get(n, 0) for n, c in counts().items() if c != before.get(n, 0)}
+    obj = warp_kernel.mode_kernel(whole, suffix).name
+    # a uint8 mip launch stages each of its levels through K3 first
+    staged = {"stage": levels.max_level} if mip and not f32 else {}
+    assert launched == {obj: 3 if entry == "band" else 1, **staged}
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+    if not mip and entry in ("frame", "one_frame"):
+        coords = warp_kernel.compute_warp_map(out_cam, in_cam, rot[0], size)
+        x, y = coords[..., 0], coords[..., 1]
+        assert bool((x < 0).any() and (x > in_w - 1).any() and (y < 0).any()
+                    and (y > in_h - 1).any()), "the map does not reach every edge"
