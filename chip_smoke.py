@@ -127,6 +127,22 @@ the last line is printed):
       ``.mp4`` (libx264 at QP 19), decoded back through the port's
       ``NativeVideoSource`` (frame count and size, encode fps); where they
       did not, a line saying that the render did not run and why.
+   n. after (a): ``--encode-only --crop 'iw/2:ih/2:(iw-ow)/2:(ih-oh)/2'``
+      from (a)'s trajectory file, every frame equal byte for byte to the
+      same window of (a)'s frames; then with ``--debug --preview DIR``
+      too: the cropped size, the HUD in the luma alone, a PNG of the
+      cropped size every 30 frames;
+   o. after (b): the same streaming render through ``render()`` with
+      ``RenderOptions(device_sink=True)``: its fps beside (b)'s y4m fps,
+      and its checksum equal to the int32-wrapped sum of (b)'s planes;
+   p. a 16-frame stock render with ``--trace DIR``: the Chrome trace must
+      name K1's ``warp_kernel`` and K2's ``lk_level_kernel``;
+   q. after (k): the match workflow through the CLI on three 640x480 y4m
+      chapters: ``join`` (the route it took), ``probe`` of the joined clip
+      and of (k)'s telemetry MP4, ``workflow tag --sets-json``,
+      ``workflow split`` (two sets rendered with ``--stabilise smooth
+      --crop ...`` in child processes of ``python -m
+      video_annotator_tpu_torch``, two at once), ``workflow encode``.
    The deshake analyse and the compare render then run once more under
    torch.profiler, for the device's busy time and idle share.
    Then the three phases of ``dryrun_multichip`` through ``parallel/``
@@ -152,10 +168,14 @@ the last line is printed):
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
 import shutil
+import struct
+import subprocess
 import sys
 import tempfile
 import time
@@ -165,13 +185,14 @@ import torch
 
 from video_annotator_tpu_torch import benchtool, cli, so3
 from video_annotator_tpu_torch.camera import CameraModel, CameraPreset, get_output_camera
+from video_annotator_tpu_torch.io import gopro, prefetch
 from video_annotator_tpu_torch.io.synthetic import (
     SyntheticCamera,
     SyntheticSource,
     render_frame,
     write_telemetry_mp4,
 )
-from video_annotator_tpu_torch.io.video import open_reader
+from video_annotator_tpu_torch.io.video import open_reader, open_writer
 from video_annotator_tpu_torch.models import deshake, similarity
 from video_annotator_tpu_torch.ops import cuda_lib, lk_kernel, roofline_kernel, stage, warp_kernel
 from video_annotator_tpu_torch.ops.corners import detect_corners
@@ -302,6 +323,14 @@ ROOF_CHECK_OUTER = 4
 # steps and tiles it was timed at, and the kernel's own time there.
 PLAIN_LABELS = ("plain_outer", "plain_tiles", "ms_at_plain_outer")
 BENCHTOOL_ARGS = ["--size", "1920x1440", "--reps", "10"]
+CROP_SPEC = "iw/2:ih/2:(iw-ow)/2:(ih-oh)/2"  # the centred half of the canvas
+PREVIEW_EVERY = 30
+TRACE_FRAMES = 16
+CHAPTERS = ("GOPR0001.y4m", "GP010001.y4m", "GP020001.y4m")
+CHAPTER_URI = "synthetic://shaky?w=640&h=480&n=12&fps=30&seed={seed}"
+MATCH_SETS = ({"start": 0.0, "end": 0.5, "score": "21-19"},
+              {"start": 0.6, "end": 1.1, "score": "15-21"})
+SET_FRAMES = 15  # 0.5 s at 30 fps
 
 
 def log(msg: str = "") -> None:
@@ -1325,6 +1354,238 @@ def up_angle_deg(a, b) -> float:
     return math.degrees(math.acos(min(1.0, max(-1.0, cos))))
 
 
+def int32_checksum(path) -> int:
+    """The sum of every byte of a y4m's frames, wrapped to int32 as the
+    device sink wraps it."""
+    total = 0
+    reader = open_reader(path)
+    for planes in reader:
+        total += sum(int(np.asarray(p).sum(dtype=np.int64)) for p in planes)
+    reader.close()
+    return (total + 2**31) % 2**32 - 2**31
+
+
+def phase_device_sink(written, y4m_seconds, dev, label):
+    """(a) The streaming stock render with ``device_sink``: the frames fold
+    into a checksum on the card, nothing is read back or written. Its fps
+    beside the same render written to y4m (``written``, the streaming
+    render before it), and its checksum held to the int32-wrapped sum of
+    that render's planes. Returns the launch counts of the run."""
+    seen = []
+
+    class Recording(prefetch.DeviceReduceSink):
+        def close(self):
+            super().close()
+            seen.append(self.checksum)
+
+    options = stock_options(streaming=True, no_output=True, device_sink=True)
+    original = streaming.DeviceReduceSink
+    streaming.DeviceReduceSink = Recording
+    for k in cuda_lib.KERNELS.values():
+        k.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trender.render(SOURCE, None, options, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        streaming.DeviceReduceSink = original
+    launches = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+    for kname in ("warp_luma", "warp_chroma", "stage", "lk_level"):
+        check(launches[kname] > 0, f"[device-sink] kernel {kname} was not launched")
+    want = int32_checksum(written)
+    log(f"[device-sink] streaming stock render, {FRAMES} frames, device sink: "
+        f"{FRAMES / secs:.2f} fps ({secs:.2f} s); the same render written to y4m "
+        f"{FRAMES / y4m_seconds:.2f} fps ({y4m_seconds:.2f} s), on {label}; "
+        f"launches {launches}")
+    log(f"[device-sink] checksum {seen}, the y4m render's planes summed in int32 {want}")
+    check(seen == [want], "[device-sink] the checksum is not the written planes' sum")
+    return launches
+
+
+def png_size(path):
+    """(width, height) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    check(head[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def phase_crop(tmp, run, full, dev):
+    """(b) The two-phase stock render again from the same trajectory file
+    with ``--crop CROP_SPEC``: every frame equal, byte for byte, to the same
+    window of the uncropped render ``full``; then with ``--debug --preview
+    DIR`` too: the cropped size, the HUD drawn into the luma alone, and a
+    PNG of the cropped size every PREVIEW_EVERY frames."""
+    crop = os.path.join(tmp, "crop.y4m")
+    shutil.copy(trajectory_path(full), trajectory_path(crop))
+    flags = ["--stabilise", "smooth", "--preset", PRESET, "--encode-only",
+             "--crop", CROP_SPEC]
+    run("crop", crop, flags, ("warp_luma", "warp_chroma"))
+    fmeta, cmeta = open_reader(full).meta, open_reader(crop).meta
+    ch, cw, cy, cx = trender.parse_crop_rect(CROP_SPEC, fmeta.width, fmeta.height)
+    check((cmeta.width, cmeta.height, cmeta.num_frames) == (cw, ch, FRAMES),
+          "[crop] output has the wrong size")
+    n = 0
+    for i, (f, c) in enumerate(zip(open_reader(full), open_reader(crop))):
+        window = (f[0][cy:cy + ch, cx:cx + cw],
+                  f[1][cy // 2:(cy + ch) // 2, cx // 2:(cx + cw) // 2],
+                  f[2][cy // 2:(cy + ch) // 2, cx // 2:(cx + cw) // 2])
+        check(all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(c, window)),
+              f"[crop] frame {i} differs from the uncropped render's window")
+        n += 1
+    check(n == FRAMES, f"[crop] {n} frames compared")
+    log(f"[crop] --crop '{CROP_SPEC}': {cw}x{ch} at ({cx}, {cy}) of the "
+        f"{fmeta.width}x{fmeta.height} canvas; all {n} frames equal, byte for byte, to "
+        f"the uncropped render's window")
+    hud = os.path.join(tmp, "crop_debug.y4m")
+    shutil.copy(trajectory_path(full), trajectory_path(hud))
+    preview = os.path.join(tmp, "preview")
+    run("crop-debug-preview", hud, flags + ["--debug", "--preview", preview],
+        ("warp_luma", "warp_chroma"))
+    hmeta = open_reader(hud).meta
+    check((hmeta.width, hmeta.height, hmeta.num_frames) == (cw, ch, FRAMES),
+          "[crop-debug-preview] output has the wrong size")
+    first = written_frames(hud, (0,))[0], written_frames(crop, (0,))[0]
+    drawn = int((first[0][0] != first[1][0]).sum())
+    check(drawn > 0 and all(np.array_equal(a, b) for a, b in zip(first[0][1:], first[1][1:])),
+          "[crop-debug-preview] the HUD is not in the luma alone")
+    pngs = sorted(os.listdir(preview))
+    want = [f"preview_{i:06d}.png" for i in range(0, FRAMES, PREVIEW_EVERY)]
+    sizes = {png_size(os.path.join(preview, name)) for name in pngs}
+    log(f"[crop-debug-preview] {hmeta.width}x{hmeta.height}; the HUD changed {drawn} luma "
+        f"values of frame 0; {len(pngs)} preview PNGs of {sizes}")
+    check(pngs == want and sizes == {(cw, ch)}, "[crop-debug-preview] wrong preview PNGs")
+    for path in (crop, hud):
+        os.remove(path)
+
+
+def phase_trace(tmp, run, flags, needs):
+    """(c) A TRACE_FRAMES-frame stock render with ``--trace DIR``: the
+    Chrome trace it writes must hold K1's and K2's kernels, or the device
+    was not traced."""
+    src = f"synthetic://shaky?w={W}&h={H}&n={TRACE_FRAMES}"
+    trace_dir = os.path.join(tmp, "trace")
+    dest = os.path.join(tmp, "traced.y4m")
+    run("trace", dest, flags + ["--trace", trace_dir], needs, source=src, frames=TRACE_FRAMES)
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"[trace] {trace_dir} holds {files}")
+    path = os.path.join(trace_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    k1 = {n: c for n, c in kernels.items() if "warp_kernel" in n}
+    k2 = {n: c for n, c in kernels.items() if "lk_level_kernel" in n}
+    log(f"[trace] {files[0]}: {os.path.getsize(path) / 2**20:.1f} MiB, {len(events)} events, "
+        f"{sum(kernels.values())} kernel launches of {len(kernels)} kernels; K1 {k1}; K2 {k2}")
+    check(k1 and k2, "[trace] the trace does not name K1's and K2's kernels")
+    shutil.rmtree(trace_dir)
+    os.remove(dest)
+
+
+def cli_json(argv):
+    """``cli.main(argv)``'s exit code and the JSON it printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, json.loads(out.getvalue()) if rc == 0 else None
+
+
+def phase_workflow(tmp, telemetry):
+    """(d) The match workflow through the CLI on three 640x480 y4m chapters:
+    ``join`` (the route it took), ``probe`` of the joined clip and of the
+    gyro phase's telemetry MP4, ``workflow tag --sets-json``, ``workflow
+    split`` (each set rendered with ``--stabilise smooth --crop CROP_SPEC``
+    in a child process of the port's CLI, two at once on the card), then
+    ``workflow encode``."""
+    d = os.path.join(tmp, "match")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    for seed, name in enumerate(CHAPTERS):
+        reader = open_reader(CHAPTER_URI.format(seed=seed))
+        writer = open_writer(os.path.join(d, name), reader.meta)
+        for planes in reader:
+            writer.write(tuple(np.asarray(p) for p in planes))
+        writer.close()
+        reader.close()
+    routes, join = [], gopro.join
+
+    def recording_join(*args, **kwargs):
+        routes.append(join(*args, **kwargs))
+        return routes[-1]
+
+    joined = os.path.join(d, "match_0001.y4m")
+    gopro.join = recording_join
+    try:
+        rc = cli.main(["join", "0001", "-o", joined, "--directory", d])
+    finally:
+        gopro.join = join
+    check(rc == 0 and routes, f"[workflow] join returned {rc}")
+    chapter = SyntheticSource.from_uri(CHAPTER_URI.format(seed=0)).meta
+    rc, info = cli_json(["probe", joined])
+    video = info["video"] if info else None
+    log(f"[workflow] join of {len(CHAPTERS)} chapters took the {routes[0]!r} route; probe: "
+        f"{video}")
+    check(rc == 0 and video["num_frames"] == len(CHAPTERS) * chapter.num_frames
+          and (video["width"], video["height"]) == (chapter.width, chapter.height),
+          "[workflow] the joined clip does not probe as the chapters")
+    rc, info = cli_json(["probe", telemetry])
+    log(f"[workflow] probe of the telemetry MP4: tracks {info and info['tracks']}, "
+        f"gpmf {info and info['gpmf']}")
+    check(rc == 0 and info["video"] is None and info["gpmf"]["gyro"]["samples"] > 0,
+          "[workflow] the telemetry MP4 does not probe")
+    rc = cli.main(["workflow", "tag", "0001", "--directory", d,
+                   "--sets-json", json.dumps(list(MATCH_SETS))])
+    check(rc == 0, f"[workflow] tag returned {rc}")
+    children, run = [], subprocess.run
+
+    def recording_run(cmd, **kwargs):
+        done = run(cmd, **kwargs)
+        children.append((cmd, done.returncode, done.stderr))
+        return done
+
+    t_split = time.perf_counter()
+    subprocess.run = recording_run
+    try:
+        rc = cli.main(["workflow", "split", "0001", "--directory", d, "--concurrency", "2",
+                       "--render-args", f"--stabilise smooth --preset {PRESET} --crop {CROP_SPEC}"])
+    finally:
+        subprocess.run = run
+    split_s = time.perf_counter() - t_split
+    for cmd, code, err in children:
+        log(f"[workflow] child: {' '.join(cmd[1:4])} ... {' '.join(cmd[6:])}: exit {code}"
+            + (f"; {err[-300:]}" if code else ""))
+    check(rc == 0 and len(children) == len(MATCH_SETS)
+          and all(cmd[1:3] == ["-m", "video_annotator_tpu_torch"] and code == 0
+                  for cmd, code, _ in children),
+          "[workflow] split's renders did not all run in the port's CLI")
+    in_cam, out_cam = trender.build_cameras(chapter, stock_options())
+    canvas = trender.FrameWarper(in_cam, out_cam)
+    ch, cw, _, _ = trender.parse_crop_rect(CROP_SPEC, canvas.out_w, canvas.out_h)
+    for i in range(1, len(MATCH_SETS) + 1):
+        out = os.path.join(d, f"match_0001_set{i}.y4m")
+        meta = open_reader(out).meta
+        check(os.path.exists(out + ".complete")
+              and (meta.width, meta.height, meta.num_frames) == (cw, ch, SET_FRAMES),
+              f"[workflow] set {i}: {meta.width}x{meta.height}, {meta.num_frames} frames")
+    log(f"[workflow] split: {len(children)} sets of {cw}x{ch}, {SET_FRAMES} frames each, "
+        f"rendered by child processes two at once in {split_s:.2f} s")
+    rc = cli.main(["workflow", "encode", "0001", "--directory", d])
+    finals = []
+    for i in range(1, len(MATCH_SETS) + 1):
+        reader = open_reader(os.path.join(d, f"match_0001_set{i}_final.mp4"))
+        finals.append((reader.meta.width, reader.meta.height, sum(1 for _ in reader)))
+        reader.close()
+    log(f"[workflow] encode: {finals}; the workflow took {time.perf_counter() - t0:.2f} s")
+    check(rc == 0 and finals == [(cw, ch, SET_FRAMES)] * len(MATCH_SETS),
+          "[workflow] encode did not write every set")
+    shutil.rmtree(d)
+
+
 def phase_renders(dev, label, native_ok, native_why):
     """The renders; returns the launch counts summed over them."""
     total = {n: 0 for n in cuda_lib.KERNELS}
@@ -1352,16 +1613,20 @@ def phase_renders(dev, label, native_ok, native_why):
         log(f"[render] trajectory RMS vs ground truth {rms:.4f} deg")
         check(traj_two.num_frames == FRAMES and rms < MAX_RMS_DEG, "trajectory is off")
         check_frame_vs_plain(two, traj_two, dev)
+        phase_crop(tmp, run, two, dev)
 
         one = os.path.join(tmp, "one.y4m")
-        mode, _, _ = run("streaming", one, stock + ["--streaming"],
-                      warp_stage + ("lk_level",))
+        mode, _, times = run("streaming", one, stock + ["--streaming"],
+                             warp_stage + ("lk_level",))
         check(mode == "paired", "streaming analysis mode did not resolve to paired")
         check_output_size("streaming", one)
         check_same_trajectory("streaming", Trajectory.load(trajectory_path(one)), traj_two)
         check_same_frames("streaming", one, two, dev)
-        os.remove(one)
         os.remove(two)
+        for n, c in phase_device_sink(one, times["streaming"], dev, label).items():
+            total[n] += c
+        os.remove(one)
+        phase_trace(tmp, run, stock, warp_stage + ("lk_level",))
 
         analysed = os.path.join(tmp, "tracked.y4m")
         run("tracked", analysed, tracked + ["-a"], ("stage", "lk_level_frame"))
@@ -1469,6 +1734,7 @@ def phase_renders(dev, label, native_ok, native_why):
         check_frames_vs_plain("gyro-rolling-shutter", rolling, rot_y, rot_c,
                               (0, FRAMES // 2, FRAMES - 1), dev)
         os.remove(rolling)
+        phase_workflow(tmp, telemetry)
         phase_mode_renders(tmp, run)
         phase_native_render(tmp, run, native_ok, native_why)
         return total

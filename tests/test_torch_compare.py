@@ -4,6 +4,8 @@ the tiled output video, byte for byte within one count when both
 packages warp with the same trajectories (the JAX analysers' own, handed
 to the port, so that only the warps and the tiling are compared)."""
 
+import json
+import os
 from fractions import Fraction
 
 import numpy as np
@@ -208,20 +210,19 @@ def test_render_compare_rejects_rolling_shutter(tmp_path):
     dict(prefilter="auto"), dict(debug=True),
 ])
 def test_render_compare_refuses_unported_options(monkeypatch, tmp_path, kw):
-    """``--crop W:H`` and ``--debug`` still raise naming their ROADMAP
-    item; ``--interp``, ``--projection`` and ``--prefilter`` (K1's modes)
-    now render the grid as the JAX package does, from the JAX analysers'
-    trajectories (at this size no tile of the prefilter's level map
-    engages, as the JAX CPU fallback's global level does not)."""
+    """Every option once refused here now renders the grid as the JAX
+    package does, from the JAX analysers' trajectories: ``--interp``,
+    ``--projection`` and ``--prefilter`` (K1's modes; at this size no tile
+    of the prefilter's level map engages, as the JAX CPU fallback's global
+    level does not), ``--crop W:H`` (the canvas's centred 64x48, cut on
+    the device before the readback) and ``--debug`` (no HUD on a grid, as
+    in the JAX package)."""
     src = "synthetic://shaky?w=96&h=64&n=2"
-    if set(kw) & {"crop_rect", "debug"}:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcompare.render_compare(src, None, ["none", "vidstab"],
-                                    trender.RenderOptions(**OPTS, **kw), device="cpu")
-        return
     (jmeta, jframes), (tmeta, tframes), _ = render_both(
         monkeypatch, tmp_path, src, ["none", "vidstab"], cell_labels=False, **kw)
     assert (tmeta.width, tmeta.height, len(tframes)) == (jmeta.width, jmeta.height, 2)
+    if "crop_rect" in kw:
+        assert (tmeta.width, tmeta.height) == (64, 48)
     for tf, jf in zip(tframes, jframes):
         for tp, jp in zip(tf, jf):
             assert_u8_close(tp, jp)
@@ -242,11 +243,23 @@ def test_cli_compare_reaches_render_compare(monkeypatch):
 
 
 def test_cli_reports_an_unported_compare_mode(monkeypatch, capsys):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    rc = tcli.main(["render", "synthetic://shaky?w=96&h=64&n=2", "grid.y4m",
-                    "--compare", "none,horizon", "--crop", "64:48"])
-    assert rc == 1
-    assert "ROADMAP" in capsys.readouterr().err
+    """A pipeline error: a malformed ``--crop`` spec stops the CLI with the
+    JAX CLI's message (a ``SystemExit``, which exits 1) before any render
+    or card check; the compare modes themselves all parse now."""
+    import video_annotator_tpu.cli as jcli
+
+    spec = "foo(1):48"
+    argv = ["render", "synthetic://shaky?w=96&h=64&n=2", "grid.y4m",
+            "--compare", "none,horizon", "--crop", spec]
+    with pytest.raises(SystemExit) as want:
+        jcli._render_options(jcli.build_parser().parse_args(argv))
+    monkeypatch.setattr(tcompare, "render_compare",
+                        lambda *a, **k: pytest.fail("rendered a malformed crop"))
+    with pytest.raises(SystemExit) as got:
+        tcli.main(argv)
+    assert str(got.value.code) == str(want.value.code)
+    assert "is not W:H[:X:Y]" in str(got.value.code)
+    assert [tcompare._parse_mode(m)[0] for m in ("none", "horizon")] == ["rotation"] * 2
 
 
 def test_cli_filter_takes_every_alias(monkeypatch):
@@ -258,7 +271,27 @@ def test_cli_filter_takes_every_alias(monkeypatch):
     assert seen == list(FILTER_ALIASES)
 
 
-def test_cli_trace_is_still_not_ported(monkeypatch, capsys):
+def test_cli_trace_is_still_not_ported(monkeypatch, tmp_path, capsys):
+    """``--trace DIR`` wraps the render call in a torch.profiler session
+    that writes a Chrome trace into DIR and prints the JAX CLI's line
+    (on the CPU, with the render stubbed: the CLI needs a card to render;
+    on one, the trace also holds the CUDA kernels, which ``chip_smoke.py``
+    checks)."""
+    calls = []
+
+    def fake_render(source, dest, options, device):
+        with torch.profiler.record_function("fake_render"):
+            calls.append((source, dest, device))
+            torch.ones(8).sum()
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert tcli.main(["render", "in.y4m", "out.y4m", "--trace", "dir"]) == 1
-    assert "--trace is not ported" in capsys.readouterr().err
+    monkeypatch.setattr(trender, "render", fake_render)
+    trace_dir = str(tmp_path / "trace")
+    assert tcli.main(["render", "in.y4m", "out.y4m", "--trace", trace_dir]) == 0
+    assert calls == [("in.y4m", "out.y4m", "cuda")]
+    assert f"device trace written to {trace_dir}" in capsys.readouterr().out
+    files = os.listdir(trace_dir)
+    assert len(files) == 1 and files[0].endswith(".pt.trace.json")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        trace = json.load(f)
+    assert any(e.get("name") == "fake_render" for e in trace["traceEvents"])

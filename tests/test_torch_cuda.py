@@ -874,3 +874,46 @@ def test_grouped_mode_kernel_is_bit_exact(cuda, out_w, out_h, interp, rays, mip,
         x, y = coords[..., 0], coords[..., 1]
         assert bool((x < 0).any() and (x > in_w - 1).any() and (y < 0).any()
                     and (y > in_h - 1).any()), "the map does not reach every edge"
+
+
+def test_device_reduce_sink_sums_on_the_card(cuda):
+    """The checksum accumulates on the planes' device, wraps as int32 like
+    the JAX package's, and is read once, in close()."""
+    from video_annotator_tpu_torch.io.prefetch import DeviceReduceSink
+
+    y = torch.full((2880, 3840), 255, dtype=torch.uint8, device=cuda)
+    c = torch.full((1440, 1920), 255, dtype=torch.uint8, device=cuda)
+    sink = DeviceReduceSink()
+    for _ in range(3):
+        sink.write((y, c, c))
+    assert sink._acc.device.type == "cuda"
+    sink.close()
+    total = 3 * 255 * (2880 * 3840 + 2 * 1440 * 1920)
+    assert sink.checksum == (total + 2**31) % 2**32 - 2**31
+
+
+def test_crop_sink_slices_card_planes_before_the_readback(cuda):
+    """CropSink in front of AsyncFrameWriter: the sink behind the readback
+    receives the window of the card's planes, byte for byte."""
+    from video_annotator_tpu_torch.io.prefetch import AsyncFrameWriter
+
+    class Recorder:
+        frames = []
+
+        def write(self, planes):
+            self.frames.append(planes)
+
+        def close(self):
+            pass
+
+    g = torch.Generator().manual_seed(3)
+    planes = (torch.randint(0, 256, (96, 128), generator=g, dtype=torch.uint8),
+              torch.randint(0, 256, (48, 64), generator=g, dtype=torch.uint8),
+              torch.randint(0, 256, (48, 64), generator=g, dtype=torch.uint8))
+    rec = Recorder()
+    sink = trender.CropSink(AsyncFrameWriter(rec), (40, 60, 8, 10))
+    sink.write(tuple(p.to(cuda) for p in planes))
+    sink.close()
+    want = (planes[0][8:48, 10:70], planes[1][4:24, 5:35], planes[2][4:24, 5:35])
+    for got, w in zip(rec.frames[0], want):
+        assert np.array_equal(got, w.numpy())

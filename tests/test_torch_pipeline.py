@@ -138,39 +138,49 @@ def test_encode_only_without_trajectory_errors(tmp_path):
                        device="cpu")
 
 
-# Refused until K1's 4-tap, ray-grid and mip modes were ported; they now
-# render, and match the JAX render.
-NOW_PORTED = {("interp", "bicubic"), ("interp", "lanczos"), ("projection", "equirect"),
-              ("prefilter", "auto")}
-
-
 @pytest.mark.parametrize("field,value", [
     ("debug", True), ("crop_rect", "64:48"), ("device_sink", True),
     ("interp", "bicubic"), ("projection", "equirect"), ("interp", "lanczos"),
     ("preview", "p.png"), ("display", True), ("prefilter", "auto"),
 ])
-def test_unported_options_raise(tmp_path, field, value):
-    """Options outside the ported slices raise naming their ROADMAP item;
-    those of :data:`NOW_PORTED` render as the JAX package does (a rolled
-    attitude instead of stabilisation, so no analyser runs; at this size
-    no tile of the prefilter's level map engages, as the JAX CPU
-    fallback's global level does not)."""
+def test_unported_options_raise(tmp_path, field, value, capsys):
+    """Every render option once refused here now renders as the JAX
+    package does (a rolled attitude instead of stabilisation, so no
+    analyser runs): frames within one count, the same size. ``--crop
+    W:H`` crops (here it clamps to the 62x46 frame),
+    ``--debug`` draws the HUD, ``--preview DIR`` (a directory
+    named ``p.png``) writes the same PNGs, ``--display`` on a host without
+    a GUI warns and renders, and ``device_sink``, which only the
+    streaming render reads, leaves the two-phase render as it is. At this
+    size no tile of the prefilter's level map engages, as the JAX CPU
+    fallback's global level does not."""
+    import cv2
+
     src = "synthetic://shaky?w=64&h=48&n=2"
-    if (field, value) not in NOW_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trender.render(src, None,
-                           trender.RenderOptions(stabilise="smooth", **{field: value}),
-                           device="cpu")
-        return
     kw = {"roll": 3.0, "pitch": -2.0, field: value}
+    if field == "preview":
+        kw["preview_every"] = 1
     jdest, tdest = tmp_path / "jax.y4m", tmp_path / "torch.y4m"
+    if field == "preview":
+        kw[field] = str(tmp_path / "jax" / value)
     jrender(src, str(jdest), JRenderOptions(**kw))
+    jerr = capsys.readouterr().err
+    if field == "preview":
+        kw[field] = str(tmp_path / "torch" / value)
     trender.render(src, str(tdest), trender.RenderOptions(**kw), device="cpu")
+    assert capsys.readouterr().err == jerr  # --display's warning
     (jmeta, jframes), (tmeta, tframes) = read_frames(jdest), read_frames(tdest)
     assert (tmeta.width, tmeta.height, len(tframes)) == (jmeta.width, jmeta.height, 2)
     for tf, jf in zip(tframes, jframes):
         for tp, jp in zip(tf, jf):
             assert_u8_close(tp, jp)
+    if field == "preview":
+        names = sorted(os.listdir(tmp_path / "jax" / value))
+        assert names == sorted(os.listdir(tmp_path / "torch" / value)) == [
+            "preview_000000.png", "preview_000001.png"]
+        for name in names:
+            assert_u8_close(cv2.imread(str(tmp_path / "torch" / value / name)),
+                            cv2.imread(str(tmp_path / "jax" / value / name)))
 
 
 def _render_actions(parser):
@@ -216,9 +226,21 @@ def test_cli_refuses_to_run_without_a_card(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-def test_cli_other_subcommands_are_not_ported(capsys):
-    assert tcli.main(["join", "1234", "-o", "x.mp4"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+def test_cli_other_subcommands_are_not_ported(tmp_path, capsys):
+    """Only ``calibrate`` is left unported (exit 2); every other
+    subcommand runs, and reports a pipeline error with exit 1 as the JAX
+    CLI does: here ``join`` of a code with no chapters and ``probe`` of
+    a missing file, while ``workflow tag`` writes its metadata."""
+    assert tcli.main(["calibrate", "corners.npz"]) == 2
+    assert "calibrate is not yet ported" in capsys.readouterr().err
+    d = str(tmp_path)
+    assert tcli.main(["join", "1234", "-o", str(tmp_path / "x.mp4"), "--directory", d]) == 1
+    assert "no segments found for code '1234'" in capsys.readouterr().err
+    assert tcli.main(["probe", str(tmp_path / "missing.mp4")]) == 1
+    assert "unreadable source" in capsys.readouterr().err
+    assert tcli.main(["workflow", "tag", "1234", "--directory", d, "--sets-json",
+                      '[{"start": 0, "end": 1, "score": "21-19"}]']) == 0
+    assert (tmp_path / "match_1234.json").exists()
 
 
 def _port_sources():

@@ -232,7 +232,7 @@ def test_render_prefilter_is_the_plain_per_tile_composition(tmp_path):
     corr = trender.compute_corrections(
         Trajectory(params=np.zeros((3, 3)), width=320, height=240), opts, "cpu")
     budget = max(opts.max_correction_deg, trender.max_rotation_deg(corr) + 0.5)
-    warper = trender.FrameWarper(in_cam, out_cam, budget, prefilter=True)
+    warper = trender.FrameWarper(in_cam, out_cam, budget, prefilter=True, device="cpu")
     assert warper.levels[0].max_level >= 1
     jin = get_preset_camera(CameraPreset.GOPRO_H4B_WIDE43_MEASURED, (320, 240))
     jout = get_output_camera(jin, scale=0.3, crop_borders=True)

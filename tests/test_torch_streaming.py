@@ -217,7 +217,6 @@ def test_streaming_matches_jax(tmp_path, monkeypatch, kw):
     (dict(smoother="nope"), ValueError, "smoother"),
     # Fixed-lag Kalman below the filter's memory would seam at batch edges.
     (dict(smoother="kalman", stabilise_radius=4), ValueError, "stabilise-radius"),
-    (dict(debug=True), NotImplementedError, "ROADMAP"),
 ])
 def test_streaming_refuses(tmp_path, kw, error, match):
     with pytest.raises(error, match=match):

@@ -577,5 +577,9 @@ def test_telemetry_refusals_match_jax(tmp_path, kw, match):
 
 
 def test_the_three_options_are_ported():
+    """The render refuses no option any more (its table of unported ones
+    is gone); the three telemetry options pass the family checks as the
+    rotation family's."""
+    assert not hasattr(trender, "check_ported")
     for kw in (dict(gyro=True), dict(horizon_lock=True), dict(rolling_shutter=0.75)):
-        trender.check_ported(trender.RenderOptions(**kw))
+        assert trender.check_family(trender.RenderOptions(**kw)) == "rotation"

@@ -1,20 +1,30 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-The ``render`` subcommand has the JAX package's full option set (the
-frozen v1.0 surface: same option strings, defaults and choices) and runs
-the ported paths on a CUDA device: the rotation family (two-phase or
-``--streaming``), ``--filter vidstab`` and ``--filter deshake``, and the
-``--compare`` grid, each with ``--interp``, and the rotation family with
-``--projection`` and ``--prefilter``. Options outside the ported slices stop with
-``NotImplementedError`` naming their ROADMAP item. The other subcommands
-of the JAX CLI (join, compare, workflow, probe, calibrate) exist and exit
-non-zero as not yet ported.
+The JAX package's subcommands with the same option strings, defaults and
+choices (the frozen v1.0 surface), ``calibrate`` aside, which exits 2 as
+not yet ported:
+
+- ``render`` runs every ported path on a CUDA device: the rotation family
+  (two-phase or ``--streaming``), ``--filter vidstab`` and ``--filter
+  deshake``, and the ``--compare`` grid, with ``--interp``,
+  ``--projection``, ``--prefilter``, ``--crop`` (bare, or ``W:H[:X:Y]`` in
+  ffmpeg crop-filter syntax, validated when the options are built),
+  ``--debug``, ``--preview``, ``--display`` and ``--trace DIR`` (a
+  torch.profiler trace of the CPU and CUDA activity, which Perfetto and
+  TensorBoard open);
+- ``compare`` is ``render --compare`` with ``--stabilise none``;
+- ``workflow stabilise`` analyses every chapter on the card and
+  ``workflow split`` renders each set in a child process of this CLI;
+- ``join``, ``probe``, ``workflow join``, ``workflow tag`` and ``workflow
+  encode`` are host IO and need no card.
 
 Usage::
 
     python -m video_annotator_tpu_torch render in.y4m out.y4m --stabilise smooth
-    python -m video_annotator_tpu_torch render in.y4m out.y4m --filter vidstab --stabilise smooth
+    python -m video_annotator_tpu_torch render in.y4m out.y4m --crop 'iw/2:ih/2'
     python -m video_annotator_tpu_torch render in.y4m grid.y4m --compare none,smooth,vidstab,deshake
+    python -m video_annotator_tpu_torch join 0001 -o match_0001.mp4
+    python -m video_annotator_tpu_torch workflow split 0001 --render-args "--stabilise smooth"
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-_NOT_PORTED = ("join", "compare", "workflow", "probe", "calibrate")
+_NOT_PORTED = ("calibrate",)
 
 
 def _parse_time(value):
@@ -70,9 +80,11 @@ def build_parser() -> argparse.ArgumentParser:
         description="Action-camera stabilization & reprojection on a CUDA GPU",
     )
     sub = p.add_subparsers(dest="command", required=True)
-    for name in _NOT_PORTED:
-        s = sub.add_parser(name, help="not yet ported (ROADMAP.md)")
-        s.add_argument("args", nargs=argparse.REMAINDER)
+
+    j = sub.add_parser("join", help="Join GoPro chaptered segments into one file")
+    j.add_argument("code", help="4-digit GoPro file code (GOPRxxxx.MP4)")
+    j.add_argument("-o", "--output", required=True, help="Path of resulting video")
+    j.add_argument("--directory", default=".", help="Where to look for segments")
 
     # add_help=False frees ``-h`` to mean height, as in the reference
     # (``render -h <pixels>``, src/cli.ts:45); ``--help`` still works.
@@ -278,101 +290,292 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference's filter debug overlays) and raise "
                         "full tracebacks")
     r.add_argument("--trace", default=None, metavar="DIR",
-                   help="not ported yet (device traces: ROADMAP.md)")
+                   help="write a torch.profiler trace of the CPU and CUDA "
+                        "activity (view with Perfetto/TensorBoard) "
+                        "alongside the per-stage wall-clock report")
     r.add_argument("-v", "--verbose", action="store_true",
                    help="Print the per-stage profiler report")
+
+    c = sub.add_parser("compare", help="Render a comparison grid of stabilizers")
+    c.add_argument("source")
+    c.add_argument("dest")
+    c.add_argument("--compare", type=str, default="none,smooth",
+                   help="Comma-separated stabilise modes")
+    c.add_argument("--preset", default=None)
+    c.add_argument("--stabilise-radius", type=int, default=90)
+    c.add_argument("--no-cell-labels", dest="cell_labels", action="store_false",
+                   help="Don't burn each cell's mode name into its corner")
+    c.add_argument("-v", "--verbose", action="store_true")
+
+    wf = sub.add_parser("workflow",
+                        help="Match workflow: stabilise/join/tag/split/encode (concat.sh)")
+    wf.add_argument("action", choices=["stabilise", "join", "tag", "split", "encode"])
+    wf.add_argument("code")
+    wf.add_argument("--directory", default=".")
+    wf.add_argument("--concurrency", type=int, default=1)
+    wf.add_argument("--sets-json", default=None,
+                    help="Non-interactive set list for 'tag'")
+    wf.add_argument("--encoder", default=None)
+    wf.add_argument("--render-args", default=None,
+                    help="Extra args passed to each split render (space-separated)")
+
+    pr = sub.add_parser("probe",
+                        help="Inspect a source: stream metadata + GPMF telemetry "
+                             "summary (the reference shells out to ffprobe, "
+                             "src/utils.ts:3-11)")
+    pr.add_argument("source")
+
+    for name in _NOT_PORTED:
+        s = sub.add_parser(name, help="not yet ported (ROADMAP.md)")
+        s.add_argument("args", nargs=argparse.REMAINDER)
     return p
 
 
+def _validated_crop(value):
+    """``--crop``'s value, validated when the options are built. With
+    ``nargs="?"`` a following positional can be taken as the value
+    (``render --crop in.mp4 out.y4m``): failing here with the expected
+    syntax beats decoding the wrong file or failing after a whole analyse.
+    The fields are ffmpeg expressions (``in_w-200``, ``min(iw,ih)``), so
+    each is parsed, not matched against a numeric pattern; their values
+    are checked at render time against the frame's size."""
+    if value is None or value is True:
+        return None
+    from video_annotator_tpu_torch.pipeline.render import validate_crop_spec
+
+    try:
+        validate_crop_spec(value)
+    except ValueError as e:
+        raise SystemExit(
+            f"--crop value {value!r} is not W:H[:X:Y] (ffmpeg crop-filter "
+            f"syntax, expressions allowed): {e}; for the bare border-crop "
+            "flag, put --crop after the source/dest paths")
+    return value
+
+
+def _verbosity_implies_report(args) -> bool:
+    """-v, or an ffmpeg-style --verbosity at info (32) or chattier, named
+    or numeric (the two forms ffmpeg's -loglevel takes)."""
+    if getattr(args, "verbose", False):
+        return True
+    level = str(getattr(args, "verbosity", None) or "").lower()
+    return level in ("info", "verbose", "debug", "trace") or (
+        level.isdigit() and int(level) >= 32)
+
+
 def _render_options(args):
+    """The ``RenderOptions`` of a ``render`` or ``compare`` command line;
+    ``compare`` lacks most of the options and takes their defaults."""
     from video_annotator_tpu_torch.camera import CameraPreset
     from video_annotator_tpu_torch.io.video import default_encoder
     from video_annotator_tpu_torch.pipeline.render import RenderOptions
 
-    verbosity = str(args.verbosity or "").lower()
-    verbose = args.verbose or verbosity in ("info", "verbose", "debug", "trace") \
-        or (verbosity.isdigit() and int(verbosity) >= 32)
+    def arg(name, default=None):
+        return getattr(args, name, default)
+
+    crop = arg("crop")
     return RenderOptions(
-        filter=args.filter,
-        start=_parse_time(args.start),
-        duration=_parse_time(args.duration),
-        end=_parse_time(args.end),
-        width=args.width,
-        height=args.height,
-        scale=args.scale,
-        crop_borders=args.crop is True,
-        crop_rect=args.crop if isinstance(args.crop, str) else None,
-        upsample=args.upsample,
-        roll=args.roll,
-        pitch=args.pitch,
-        yaw=args.yaw,
+        filter=arg("filter", "rotation"),
+        start=_parse_time(arg("start")),
+        duration=_parse_time(arg("duration")),
+        end=_parse_time(arg("end")),
+        width=arg("width"),
+        height=arg("height"),
+        scale=arg("scale", 1.0),
+        crop_borders=crop is True,
+        crop_rect=_validated_crop(crop),
+        upsample=arg("upsample", 0.0),
+        roll=arg("roll", 0.0),
+        pitch=arg("pitch", 0.0),
+        yaw=arg("yaw", 0.0),
         stabilise=args.stabilise,
-        smoother=args.smoother,
+        smoother=arg("smoother", "savgol"),
         stabilise_radius=args.stabilise_radius,
-        interpolate_radius=args.interpolate_radius,
-        stabilise_buffer=args.stabilise_buffer,
-        input_dfov=args.input_dfov,
-        output_dfov=args.output_dfov,
-        projection=args.projection,
+        interpolate_radius=arg("interpolate_radius", 30),
+        stabilise_buffer=arg("stabilise_buffer", 20.0),
+        input_dfov=arg("input_dfov", 145.8),
+        output_dfov=arg("output_dfov"),
+        projection=arg("projection", "rect"),
         preset=CameraPreset(args.preset.lower()) if args.preset else None,
-        gyro=args.gyro,
-        horizon_lock=args.horizon_lock,
-        rolling_shutter=args.rolling_shutter,
-        streaming=args.streaming,
-        analyse_only=args.analyse_only,
-        encode_only=args.encode_only,
-        no_output=args.no_output,
-        encoder=args.encoder or default_encoder(),
-        frame_rate=args.frame_rate,
-        warp_batch=args.warp_batch,
-        prefetch_depth=args.prefetch_depth,
-        native_io=args.native_io,
-        analysis_scale=args.analysis_scale,
-        analysis_chunk=args.analysis_chunk,
-        analysis_mode=args.analysis_mode,
-        analysis_detect_level=args.analysis_detect_level,
-        analysis_iters=args.analysis_iters,
-        preview=args.preview,
-        preview_every=args.preview_every,
-        display=args.display,
-        max_correction_deg=args.max_correction,
-        prefilter=args.prefilter,
-        interp=args.interp,
-        debug=args.debug,
-        cell_labels=args.cell_labels,
-        verbose=verbose,
+        gyro=arg("gyro", False),
+        horizon_lock=arg("horizon_lock", False),
+        rolling_shutter=arg("rolling_shutter", 0.0),
+        streaming=arg("streaming", False),
+        analyse_only=arg("analyse_only", False),
+        encode_only=arg("encode_only", False),
+        no_output=arg("no_output", False),
+        encoder=arg("encoder") or default_encoder(),
+        frame_rate=arg("frame_rate"),
+        warp_batch=arg("warp_batch"),
+        prefetch_depth=arg("prefetch_depth", 3),
+        native_io=arg("native_io", True),
+        analysis_scale=arg("analysis_scale", "auto"),
+        analysis_chunk=arg("analysis_chunk", 16),
+        analysis_mode=arg("analysis_mode", "auto"),
+        analysis_detect_level=arg("analysis_detect_level", 1),
+        analysis_iters=arg("analysis_iters", 8),
+        preview=arg("preview"),
+        preview_every=arg("preview_every", 30),
+        display=arg("display", False),
+        max_correction_deg=arg("max_correction", 8.0),
+        prefilter=arg("prefilter", "off"),
+        interp=arg("interp", "bilinear"),
+        debug=arg("debug", False),
+        cell_labels=arg("cell_labels", True),
+        verbose=_verbosity_implies_report(args),
     )
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    if args.command != "render":
-        print(f"error: {args.command} is not yet ported to the torch package "
-              "(ROADMAP.md)", file=sys.stderr)
-        return 2
-    try:
-        import torch
+def probe(source: str) -> dict:
+    """Source metadata as a JSON-friendly dict: the video stream's size,
+    rate and frame count, the container's tracks and a summary of its
+    GPMF telemetry (the reference shells out to ffprobe,
+    ``src/utils.ts:3-11``). Raises ``ValueError`` when none of the three
+    can be read. Host IO only."""
+    from video_annotator_tpu_torch.io.video import open_reader
 
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the torch package's CLI renders on a GPU "
-                "(library calls take device='cpu' for testing)")
-        if args.trace:
-            raise NotImplementedError(
-                "--trace is not ported to the torch package yet (ROADMAP.md)")
+    out = {"source": source, "video": None}
+    reader = None
+    try:
+        reader = open_reader(source)
+        meta = reader.meta
+        out["video"] = {
+            "width": meta.width,
+            "height": meta.height,
+            "fps": float(meta.fps),
+            "num_frames": meta.num_frames,
+            "duration_s": (round(meta.num_frames / float(meta.fps), 3)
+                           if meta.num_frames and meta.fps else None),
+        }
+    except Exception:
+        pass  # a telemetry-only or unreadable container: the tracks may parse
+    finally:
+        if reader is not None:
+            reader.close()
+    try:
+        from video_annotator_tpu_torch.io.mp4 import parse_tracks
+
+        out["tracks"] = [
+            {"handler": t.handler_type.decode("ascii", "replace"),
+             "name": (t.handler_name or "").strip("\x00\t "),
+             "samples": len(t.sample_sizes)}
+            for t in parse_tracks(source)
+        ]
+    except Exception:
+        out["tracks"] = None  # not ISO-BMFF (y4m, synthetic, raw)
+    telemetry = {}
+    try:
+        from video_annotator_tpu_torch.io.gpmf import extract_imu
+
+        for name, stream in extract_imu(source).items():
+            if stream is None:
+                continue
+            vals, ts = stream
+            span = float(ts[-1] - ts[0]) if len(ts) > 1 else 0.0
+            telemetry[name.decode().lower()] = {
+                "samples": int(vals.shape[0]),
+                "rate_hz": round((len(ts) - 1) / span, 1) if span else None,
+            }
+    except Exception:
+        pass
+    out["gpmf"] = telemetry or None
+    if out["video"] is None and out["tracks"] is None and out["gpmf"] is None:
+        raise ValueError(f"unreadable source: {source}")
+    return out
+
+
+def _require_cuda():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the torch package's CLI renders on a GPU "
+            "(library calls take device='cpu' for testing)")
+
+
+def _trace(trace_dir):
+    """``--trace DIR``: a torch.profiler session over the render, with the
+    CPU and CUDA activity this build of torch can record, that writes a
+    Chrome trace (``*.pt.trace.json``) into ``DIR`` when it closes."""
+    import torch
+
+    return torch.profiler.profile(
+        activities=sorted(torch.profiler.supported_activities(), key=str),
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(trace_dir))
+
+
+def _render(args):
+    import contextlib
+
+    options = _render_options(args)  # a malformed --crop stops before the card is asked
+    _require_cuda()
+    with _trace(args.trace) if args.trace else contextlib.nullcontext():
         if args.compare:
             from video_annotator_tpu_torch.pipeline.compare import render_compare
 
             modes = [m.strip() for m in args.compare.split(",") if m.strip()]
-            render_compare(args.source, args.dest, modes, _render_options(args),
-                           device="cuda")
-            return 0
-        from video_annotator_tpu_torch.pipeline.render import render
+            render_compare(args.source, args.dest, modes, options, device="cuda")
+        else:
+            from video_annotator_tpu_torch.pipeline.render import render
 
-        render(args.source, args.dest, _render_options(args), device="cuda")
+            render(args.source, args.dest, options, device="cuda")
+    if args.trace:
+        print(f"device trace written to {args.trace}")
+
+
+def _workflow(args):
+    from video_annotator_tpu_torch import workflow
+
+    if args.action == "join":
+        from video_annotator_tpu_torch.io.gopro import join
+
+        join(args.code, f"{args.directory}/match_{args.code}.mp4", directory=args.directory)
+    elif args.action == "tag":
+        workflow.tag(args.code, args.directory, args.sets_json)
+    elif args.action == "stabilise":
+        _require_cuda()
+        workflow.stabilise(args.code, args.directory, args.concurrency, device="cuda")
+    elif args.action == "split":
+        # Each set renders in a child process of this CLI, which checks
+        # for the card itself.
+        workflow.split(args.code, args.directory, args.concurrency,
+                       args.render_args.split() if args.render_args else None)
+    else:
+        from video_annotator_tpu_torch.io.video import default_encoder
+
+        workflow.encode(args.code, args.directory, args.encoder or default_encoder())
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.command in _NOT_PORTED:
+        print(f"error: {args.command} is not yet ported to the torch package "
+              "(ROADMAP.md)", file=sys.stderr)
+        return 2
+    try:
+        if args.command == "join":
+            from video_annotator_tpu_torch.io.gopro import join
+
+            join(args.code, args.output, directory=args.directory)
+        elif args.command == "render":
+            _render(args)
+        elif args.command == "compare":
+            from video_annotator_tpu_torch.pipeline.compare import render_compare
+
+            args.stabilise = "none"
+            options = _render_options(args)
+            _require_cuda()
+            modes = [m.strip() for m in args.compare.split(",") if m.strip()]
+            render_compare(args.source, args.dest, modes, options, device="cuda")
+        elif args.command == "workflow":
+            _workflow(args)
+        else:
+            import json
+
+            print(json.dumps(probe(args.source), indent=2))
         return 0
     except Exception as e:  # the CLI exits 1 on pipeline errors
-        if args.debug:
+        if getattr(args, "debug", False):
             raise
         print(f"error: {e}", file=sys.stderr)
         return 1

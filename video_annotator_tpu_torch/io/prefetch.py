@@ -1,7 +1,8 @@
-"""Host->device frame feed and device->host writer, each on a worker thread.
+"""Host->device frame feed and device->host writer, each on a worker thread,
+and the readback-free device sink.
 
 Port of ``video_annotator_tpu/io/prefetch.py`` (``DevicePrefetcher``,
-``AsyncFrameWriter``). On a CUDA device the prefetcher stages each
+``AsyncFrameWriter``, ``DeviceReduceSink``). On a CUDA device the prefetcher stages each
 decoded frame in a ring of pinned host buffers and copies it with
 ``non_blocking`` on a side stream, a few frames ahead of the consumer;
 the consumer's stream waits on the copy's event before using the frame.
@@ -147,3 +148,32 @@ class AsyncFrameWriter:
                 pass
             raise self._err
         self._writer.close()
+
+
+class DeviceReduceSink:
+    """Output consumer that never reads a frame back: ``write((y, u, v))``
+    folds each frame's planes into a running checksum on their device (a
+    real data dependency, so the warps it consumes must complete);
+    ``close()`` reads it once. With it a streaming render's device half
+    (decode, upload, analyse, warp) can be timed apart from the readback
+    and the write.
+
+    ``checksum`` is the JAX package's: the sum of every byte written, in
+    int32 arithmetic that wraps (one 3840x2880 luma plane of 255 already
+    passes 2**31). The device accumulates exact int64 sums; the wrap to
+    int32 is taken once, in ``close()``, which gives the same value
+    because both are sums modulo 2**32."""
+
+    def __init__(self):
+        self._acc = None
+        self.checksum: int = 0
+
+    def write(self, planes):
+        y, u, v = planes
+        total = (y.sum(dtype=torch.int64) + u.sum(dtype=torch.int64)
+                 + v.sum(dtype=torch.int64))
+        self._acc = total if self._acc is None else self._acc + total
+
+    def close(self):
+        if self._acc is not None:
+            self.checksum = (int(self._acc) + 2**31) % 2**32 - 2**31

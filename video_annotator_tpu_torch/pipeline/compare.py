@@ -19,6 +19,10 @@ every cell on the CPU, use the families' plain torch warps. ``--interp``
 reaches the rotation and similarity cells, ``--projection`` and
 ``--prefilter`` the rotation cells (K1's 4-tap, ray-grid and mip modes);
 the level map probes the largest rotation-cell correction.
+
+``--crop W:H[:X:Y]`` takes its rectangle from the whole canvas, sliced on
+the device before the readback. ``--debug``, ``--preview`` and
+``--display`` leave the grid as it is, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,11 +50,12 @@ from video_annotator_tpu_torch.models.similarity import (
 from video_annotator_tpu_torch.ops.warp_kernel import to_u8
 from video_annotator_tpu_torch.pipeline.profiler import Progress, StageProfiler
 from video_annotator_tpu_torch.pipeline.render import (
+    CropSink,
     FrameWarper,
     RenderOptions,
     analyse,
+    apply_crop_rect,
     build_cameras,
-    check_ported,
     compute_corrections,
     max_rotation_deg,
     open_trimmed,
@@ -188,7 +193,6 @@ def render_compare(source: str, dest: Optional[str], modes: Sequence[str],
         raise ValueError(
             "--rolling-shutter is not supported with --compare (cells "
             "warp with whole-frame poses); render modes separately")
-    check_ported(options)
     parsed = [_parse_mode(m) for m in modes]
     fams = {f for f, _, _ in parsed}
     reader, meta, first, last = open_trimmed(source, options, dev)
@@ -260,8 +264,11 @@ def render_compare(source: str, dest: Optional[str], modes: Sequence[str],
                   for pair in stamps]
     out_meta = VideoMeta(cell_w * cols, cell_h * rows, output_fps(options, meta),
                          num_frames)
+    write_meta, crop_r = apply_crop_rect(out_meta, options)
     writer = AsyncFrameWriter(open_writer(None if options.no_output else dest,
-                                          out_meta, encoder=options.encoder))
+                                          write_meta, encoder=options.encoder))
+    if crop_r:  # the canvas's rectangle, sliced on the device before the readback
+        writer = CropSink(writer, crop_r)
 
     def warp_cell(fam, corr, planes_u8, planes_f32):
         if fam == "rotation":

@@ -39,16 +39,21 @@ the two-phase skeleton: their analysers write a ``similarity`` or
    other than rectilinear and ``--prefilter auto`` run K1's 4-tap,
    ray-grid and per-tile mip modes (:class:`FrameWarper`).
 
-Every library entry point takes ``device``. Options outside the ported
-slices (crop, overlays, previews) raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+Every library entry point takes ``device``. The frames leave through
+:func:`open_sink`: ``--crop W:H[:X:Y]`` (an ffmpeg crop-filter
+rectangle, :func:`parse_crop_rect`) slices them on the device, then the
+writer thread reads them back, draws the ``--debug`` HUD
+(``pipeline/debug.py``), writes the ``--preview`` PNGs, shows the
+``--display`` window and writes the file.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import struct
+import sys
 from fractions import Fraction
 from typing import Optional
 
@@ -67,7 +72,12 @@ from video_annotator_tpu_torch.camera import (
 from video_annotator_tpu_torch.io.gpmf import extract_accl, extract_gyro, extract_imu
 from video_annotator_tpu_torch.io.mp4 import parse_tracks
 from video_annotator_tpu_torch.io.prefetch import AsyncFrameWriter, DevicePrefetcher
-from video_annotator_tpu_torch.io.video import VideoMeta, open_reader, open_writer
+from video_annotator_tpu_torch.io.video import (
+    VideoMeta,
+    open_reader,
+    open_writer,
+    yuv420_to_bgr,
+)
 from video_annotator_tpu_torch.ops.corners import detect_corners
 from video_annotator_tpu_torch.ops.lk import DEF_LEVELS, WIN
 from video_annotator_tpu_torch.ops.lk_kernel import (
@@ -203,26 +213,6 @@ class RenderOptions:
     verbose: bool = False
 
 
-# (option, value that this package runs, ROADMAP.md item that ports the rest)
-_UNPORTED = (
-    ("crop_rect", (None,), "compare/debug/workflow/calibrate/join/probe"),
-    ("debug", (False,), "compare/debug/workflow/calibrate/join/probe"),
-    ("preview", (None,), "compare/debug/workflow/calibrate/join/probe"),
-    ("display", (False,), "compare/debug/workflow/calibrate/join/probe"),
-    ("device_sink", (False,), "benchmark ports"),
-)
-
-
-def check_ported(options: RenderOptions) -> None:
-    """Raise ``NotImplementedError`` for an option this package cannot run."""
-    for name, ported, item in _UNPORTED:
-        value = getattr(options, name)
-        if value not in ported:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to the torch package yet "
-                f"(ROADMAP.md, modules still to port: {item})")
-
-
 def resolve_analysis_mode(options, device) -> str:
     """``auto`` is ``paired`` on a CUDA device (the sequential tracker is
     launch-bound there) and ``tracked`` on the CPU, as in the JAX
@@ -331,6 +321,455 @@ def upsample_factor(upsample) -> float:
 def output_fps(options, meta) -> Fraction:
     return (Fraction(options.frame_rate).limit_denominator(1001)
             if options.frame_rate else meta.fps)
+
+
+# --- the output crop rectangle (--crop W:H[:X:Y]) --------------------------
+
+
+def eval_ffmpeg_expr(expr: str, env: dict) -> float:
+    """Evaluate an ffmpeg filter expression: the ``av_expr`` subset that the
+    crop filter documents. Numbers (scientific notation too), names from
+    ``env``, ``+ - * / ^``, unary minus, parentheses, and the functions
+    ``min max abs floor ceil trunc round mod pow if gt gte lt lte eq``. The
+    reference forwards ``--crop`` verbatim into ``crop=${crop}``, where
+    ffmpeg evaluates this language, so ``in_w-200`` or ``min(iw,ih)`` work
+    here too. A recursive descent parser; no Python ``eval``.
+
+    Syntax errors (unknown names, unbalanced parentheses, trailing text)
+    raise ``ValueError``. Arithmetic follows C doubles as ``av_expr`` does:
+    division by zero and overflow give +-inf or NaN instead of raising, so
+    a caller can tell a bad expression from a bad value at given
+    dimensions."""
+
+    def _div(a, b):
+        try:
+            return a / b
+        except ZeroDivisionError:
+            return math.nan if a == 0 else math.copysign(math.inf, a) * (
+                math.copysign(1.0, b))
+
+    def _pow(a, b):
+        try:
+            return float(a) ** float(b)
+        except OverflowError:
+            return math.inf
+        except (ValueError, ZeroDivisionError):  # (-x) ** frac, 0 ** -1
+            return math.nan
+
+    def _cdouble(f):
+        # C's floor/ceil/trunc/round pass +-inf and NaN through; Python's
+        # math.floor raises OverflowError on inf.
+        def g(d):
+            return d if (math.isinf(d) or math.isnan(d)) else float(f(d))
+        return g
+
+    def _round(d):
+        # av_expr rounds half away from zero (eval.c e_round), not to even:
+        # round(2.5) = 3, round(-2.5) = -3.
+        return math.floor(d + 0.5) if d >= 0 else math.ceil(d - 0.5)
+
+    def _mod(a, b):
+        # av_expr's mod is floored (eval.c e_mod: d - floor(d / d2) * d2),
+        # not C's fmod: mod(-5, 3) = 1, the result's sign that of b.
+        if not b:
+            return math.nan
+        try:
+            return a - math.floor(a / b) * b
+        except (OverflowError, ValueError):
+            return math.nan
+
+    funcs = {
+        "min": min, "max": max, "abs": abs, "floor": _cdouble(math.floor),
+        "ceil": _cdouble(math.ceil), "trunc": _cdouble(math.trunc),
+        "round": _cdouble(_round),
+        "mod": _mod, "pow": _pow,
+        "if": lambda c, a, b=0.0: a if c != 0 else b,
+        "gt": lambda a, b: 1.0 if a > b else 0.0,
+        "gte": lambda a, b: 1.0 if a >= b else 0.0,
+        "lt": lambda a, b: 1.0 if a < b else 0.0,
+        "lte": lambda a, b: 1.0 if a <= b else 0.0,
+        "eq": lambda a, b: 1.0 if a == b else 0.0,
+    }
+    s = str(expr)
+    pos = [0]
+
+    def peek():
+        while pos[0] < len(s) and s[pos[0]].isspace():
+            pos[0] += 1
+        return s[pos[0]] if pos[0] < len(s) else ""
+
+    def parse_sum():
+        v = parse_prod()
+        while peek() in ("+", "-"):
+            op = s[pos[0]]
+            pos[0] += 1
+            r = parse_prod()
+            v = v + r if op == "+" else v - r
+        return v
+
+    def parse_prod():
+        v = parse_pow()
+        while peek() in ("*", "/"):
+            op = s[pos[0]]
+            pos[0] += 1
+            r = parse_pow()
+            v = v * r if op == "*" else _div(v, r)
+        return v
+
+    def parse_sign():
+        # eval.c's parse_dB takes at most one leading sign; av_strtod takes
+        # a second into a numeric literal (parse_atom), a third is an error.
+        c = peek()
+        if c in ("+", "-"):
+            pos[0] += 1
+            return -1.0 if c == "-" else 1.0
+        return 1.0
+
+    def parse_pow():
+        # '^' (eval.c parse_factor) binds tighter than * and /, and is left
+        # associative (2^3^2 = 64); a leading sign multiplies the whole
+        # chain (-3^2 = -9, --3^2 = -(pow(-3, 2)) = -9); an exponent's own
+        # sign negates the exponent (2^-3 = 0.125).
+        sign = parse_sign()
+        v = parse_atom()
+        while peek() == "^":
+            pos[0] += 1
+            v = _pow(v, parse_sign() * parse_atom())
+        return sign * v
+
+    def parse_number(start):
+        while pos[0] < len(s) and (s[pos[0]].isdigit() or s[pos[0]] == "."):
+            pos[0] += 1
+        # Scientific notation (1e3, 2.5E-2), only where the 'e' is followed
+        # by a digit or a signed digit; otherwise it starts a name.
+        if pos[0] < len(s) and s[pos[0]] in "eE":
+            j = pos[0] + 1
+            if j < len(s) and s[j] in "+-":
+                j += 1
+            if j < len(s) and s[j].isdigit():
+                pos[0] = j
+                while pos[0] < len(s) and s[pos[0]].isdigit():
+                    pos[0] += 1
+        return float(s[start:pos[0]])
+
+    def parse_atom():
+        c = peek()
+        if c in ("-", "+"):
+            # parse_sign took the sign before this one; av_strtod takes
+            # exactly one more into a numeric literal ('--3' = -(-3)), and
+            # anything else ('--x', '---3') is an error in ffmpeg too.
+            pos[0] += 1
+            nxt = peek()
+            if nxt.isdigit() or nxt == ".":
+                v = parse_number(pos[0])
+                return -v if c == "-" else v
+            raise ValueError(f"cannot parse expression {expr!r} at {s[pos[0]:]!r}")
+        if c == "(":
+            pos[0] += 1
+            v = parse_sum()
+            if peek() != ")":
+                raise ValueError(f"unbalanced parens in expression {expr!r}")
+            pos[0] += 1
+            return v
+        start = pos[0]
+        if c.isdigit() or c == ".":
+            return parse_number(start)
+        if c.isalpha() or c == "_":
+            while pos[0] < len(s) and (s[pos[0]].isalnum() or s[pos[0]] == "_"):
+                pos[0] += 1
+            name = s[start:pos[0]]
+            if peek() == "(":
+                if name not in funcs:
+                    raise ValueError(f"unknown function {name!r} in {expr!r}")
+                pos[0] += 1
+                a = [parse_sum()]
+                while peek() == ",":
+                    pos[0] += 1
+                    a.append(parse_sum())
+                if peek() != ")":
+                    raise ValueError(f"unbalanced parens in expression {expr!r}")
+                pos[0] += 1
+                return float(funcs[name](*a))
+            if name not in env:
+                raise ValueError(f"unknown variable {name!r} in {expr!r}")
+            return float(env[name])
+        raise ValueError(f"cannot parse expression {expr!r} at {s[pos[0]:]!r}")
+
+    v = parse_sum()
+    if peek() != "":
+        raise ValueError(f"trailing garbage in expression {expr!r}: {s[pos[0]:]!r}")
+    return v
+
+
+def _crop_fields(spec: str) -> list:
+    parts = str(spec).split(":")
+    if parts and parts[-1] == "":  # one trailing ':' is tolerated
+        parts.pop()
+    if not parts or any(p == "" for p in parts):
+        # ffmpeg's av_expr refuses an empty field; shifting the remaining
+        # fields left would crop the wrong region.
+        raise ValueError(f"empty field in --crop value {spec!r}")
+    if len(parts) > 6:
+        raise ValueError(f"--crop takes at most w:h:x:y:keep_aspect:exact "
+                         f"(got {spec!r})")
+    return parts
+
+
+def validate_crop_spec(spec: str) -> None:
+    """Check a ``--crop`` value's syntax: its fields and that each
+    expression parses. Values are not judged: whether an expression is
+    finite and inside the frame depends on the video's dimensions, which
+    :func:`parse_crop_rect` checks at render time. Raises ``ValueError``
+    on a malformed spec."""
+    parts = _crop_fields(spec)
+    env = {
+        "in_w": 1920.0, "iw": 1920.0, "in_h": 1080.0, "ih": 1080.0,
+        "out_w": 1920.0, "ow": 1920.0, "out_h": 1080.0, "oh": 1080.0,
+        "a": 16 / 9, "sar": 1.0, "dar": 16 / 9, "hsub": 2, "vsub": 2,
+        "n": 0, "t": 0.0, "x": 0.0, "y": 0.0,
+    }
+    for i, p in enumerate(parts):
+        # keep_aspect and exact (fields 5 and 6) are option booleans that
+        # ffmpeg evaluates without the frame variables (parse_crop_rect).
+        eval_ffmpeg_expr(p, env if i < 4 else {})
+
+
+def parse_crop_rect(spec: str, width: int, height: int):
+    """``(ch, cw, cy, cx)`` of a ``--crop`` value in the ffmpeg crop
+    filter's syntax ``w:h[:x:y]`` on a ``width`` x ``height`` frame. Each
+    field is an ffmpeg expression over ``in_w``/``iw``/``in_h``/``ih`` and
+    ``out_w``/``ow``/``out_h``/``oh``, cross references resolved by the
+    crop filter's two rounds of evaluation (``x`` is visible to ``y`` and
+    back). x and y default to centred; the values clamp inside the frame
+    and round down to even for 4:2:0."""
+    parts = _crop_fields(spec)
+    # Fields 5 and 6 are vf_crop's keep_aspect and exact. exact=0 (round
+    # to the subsampling grid) is what this parser does; keep_aspect only
+    # rewrites the output's SAR, which the writers here do not carry. Both
+    # are option booleans that ffmpeg evaluates without the frame
+    # variables (libavutil/opt.c), so 'crop=...:gt(iw,0)' fails there too.
+    if len(parts) >= 5 and eval_ffmpeg_expr(parts[4], {}) != 0:
+        print("note: --crop keep_aspect adjusts SAR metadata only; "
+              "this pipeline writes square pixels — ignored", file=sys.stderr)
+    base = {
+        "in_w": width, "iw": width, "in_h": height, "ih": height,
+        "a": width / height, "sar": 1.0, "dar": width / height,
+        "hsub": 2, "vsub": 2, "n": 0, "t": 0.0,
+        # x and y are NaN while sizing, as in vf_crop's config_input: a w
+        # or h expression that uses them fails the finite check below.
+        "x": math.nan, "y": math.nan,
+    }
+    # ffmpeg evaluates w and h twice so that each may reference the other
+    # (libavfilter/vf_crop.c config_input): out_* start as in_*.
+    env = dict(base, out_w=width, ow=width, out_h=height, oh=height)
+    for _ in range(2):
+        cw = eval_ffmpeg_expr(parts[0], env) if len(parts) > 0 else width
+        env.update(out_w=cw, ow=cw)
+        ch = eval_ffmpeg_expr(parts[1], env) if len(parts) > 1 else height
+        env.update(out_h=ch, oh=ch)
+    if not (math.isfinite(cw) and math.isfinite(ch)):
+        raise ValueError(f"--crop {spec!r} evaluates to a non-finite size "
+                         f"({cw}x{ch}) at {width}x{height}")
+    cw, ch = int(cw), int(ch)
+    cw = max(2, min(cw, width))
+    ch = max(2, min(ch, height))
+    cw -= cw % 2
+    ch -= ch % 2
+    # vf_crop evaluates x, then y, then x again, so that each may reference
+    # the other; both start at the centred defaults.
+    env.update(out_w=cw, ow=cw, out_h=ch, oh=ch,
+               x=(width - cw) / 2, y=(height - ch) / 2)
+    for _ in range(2):
+        cx = eval_ffmpeg_expr(parts[2], env) if len(parts) > 2 else (width - cw) / 2
+        env["x"] = cx
+        cy = eval_ffmpeg_expr(parts[3], env) if len(parts) > 3 else (height - ch) / 2
+        env["y"] = cy
+    if not (math.isfinite(cx) and math.isfinite(cy)):
+        raise ValueError(f"--crop {spec!r} evaluates to a non-finite offset at "
+                         f"{width}x{height}")
+    cx, cy = int(cx), int(cy)
+    cx = max(0, min(cx, width - cw))
+    cy = max(0, min(cy, height - ch))
+    cx -= cx % 2
+    cy -= cy % 2
+    return ch, cw, cy, cx
+
+
+def apply_crop_rect(out_meta: VideoMeta, options):
+    """(cropped VideoMeta, rect or None) for ``--crop W:H[:X:Y]``."""
+    spec = getattr(options, "crop_rect", None)
+    if not spec:
+        return out_meta, None
+    rect = parse_crop_rect(spec, out_meta.width, out_meta.height)
+    ch, cw, _, _ = rect
+    return VideoMeta(cw, ch, out_meta.fps, out_meta.num_frames), rect
+
+
+# --- frame sinks around the writer -----------------------------------------
+
+
+class CropSink:
+    """The output rectangle of ``--crop W:H[:X:Y]`` (the reference's
+    ``crop=`` output filter): slices every written YUV triple, numpy
+    planes or tensors alike. In front of the readback (the renders put it
+    outside :class:`AsyncFrameWriter`) it slices the device's planes, so
+    only the rectangle crosses to the host; the bytes written are those
+    of cropping after the readback."""
+
+    def __init__(self, sink, rect):
+        self._sink = sink
+        self._ch, self._cw, self._cy, self._cx = rect
+
+    def write(self, planes):
+        y, u, v = planes
+        ch, cw, cy, cx = self._ch, self._cw, self._cy, self._cx
+        self._sink.write((
+            y[cy:cy + ch, cx:cx + cw],
+            u[cy // 2:(cy + ch) // 2, cx // 2:(cx + cw) // 2],
+            v[cy // 2:(cy + ch) // 2, cx // 2:(cx + cw) // 2],
+        ))
+
+    def close(self):
+        self._sink.close()
+
+
+class PreviewSink:
+    """Headless analogue of the reference demo's live view (it imshows
+    every warped frame, ``opencv/DisplayImage.cpp:60-72``): every Nth final
+    output frame written as a PNG into a directory, to look at while the
+    render runs (``--preview DIR [--preview-every N]``). Runs on the
+    writer thread, on host planes."""
+
+    def __init__(self, sink, directory: str, every: int = 30):
+        os.makedirs(directory, exist_ok=True)
+        self._sink = sink
+        self._dir = directory
+        self._every = max(1, int(every))
+        self._i = 0
+
+    def write(self, planes):
+        if self._i % self._every == 0:
+            import cv2
+
+            y, u, v = (np.asarray(p) for p in planes)
+            cv2.imwrite(os.path.join(self._dir, f"preview_{self._i:06d}.png"),
+                        yuv420_to_bgr(y.astype(np.uint8), u.astype(np.uint8),
+                                      v.astype(np.uint8)))
+        self._i += 1
+        self._sink.write(planes)
+
+    def close(self):
+        self._sink.close()
+
+
+class DisplaySink:
+    """The reference demo's live view: ``imshow`` of each final output
+    frame in a window as the render runs (``opencv/DisplayImage.cpp:60-72``).
+    Made by :func:`make_display_sink`, which first probes for a GUI that
+    works. ESC closes the window; the render goes on."""
+
+    _WINDOW = "video_annotator_tpu"
+
+    def __init__(self, sink):
+        self._sink = sink
+        self._open = True
+
+    def write(self, planes):
+        self._sink.write(planes)
+        if not self._open:
+            return
+        import cv2
+
+        y, u, v = (np.asarray(p).astype(np.uint8) for p in planes)
+        try:
+            cv2.imshow(self._WINDOW, yuv420_to_bgr(y, u, v))
+            # The reference loop's 1 ms waitKey pump (DisplayImage.cpp:70).
+            if cv2.waitKey(1) & 0xFF == 27:
+                cv2.destroyWindow(self._WINDOW)
+                self._open = False
+        except cv2.error:
+            # The display went away during the render: stop showing frames,
+            # keep rendering.
+            self._open = False
+
+    def close(self):
+        if self._open:
+            import cv2
+
+            try:
+                cv2.destroyWindow(self._WINDOW)
+            except cv2.error:
+                pass
+        self._sink.close()
+
+
+def gui_available() -> bool:
+    """True when OpenCV's highgui can open a window on this host. Probed in
+    a child process: a headless build aborts inside ``namedWindow``, which
+    no handler catches, and a GUI build without a display fails on the
+    first event pump. A child that dies in any way means no GUI."""
+    import subprocess
+
+    try:
+        probe = subprocess.run(
+            [sys.executable, "-c",
+             "import cv2; cv2.namedWindow('__vat_probe__'); "
+             "cv2.waitKey(1); cv2.destroyWindow('__vat_probe__')"],
+            capture_output=True, timeout=20)
+        return probe.returncode == 0
+    except Exception:
+        return False
+
+
+def make_display_sink(sink):
+    """``sink`` in a :class:`DisplaySink` where a GUI works here (the child
+    probe of :func:`gui_available` exits 0 and the window opens);
+    otherwise a one-line warning and ``sink`` unchanged, as the JAX
+    package does."""
+    if not gui_available():
+        print("[render] --display: no usable GUI on this host; "
+              "use --preview DIR for the headless live view", file=sys.stderr)
+        return sink
+    try:
+        import cv2
+
+        cv2.namedWindow(DisplaySink._WINDOW, cv2.WINDOW_AUTOSIZE)
+        cv2.waitKey(1)
+    except Exception as e:  # the display went away after the probe
+        print(f"[render] --display: GUI probe passed but the window "
+              f"failed to open ({e!s:.120}); continuing headless", file=sys.stderr)
+        return sink
+    return DisplaySink(sink)
+
+
+def wrap_preview(sink, options):
+    """``--preview`` and ``--display`` around the file sink (innermost):
+    frames reach them through the crop and the HUD, so they show exactly
+    the frame the container receives."""
+    if getattr(options, "preview", None):
+        sink = PreviewSink(sink, options.preview, getattr(options, "preview_every", 30))
+    if getattr(options, "display", False):
+        sink = make_display_sink(sink)
+    return sink
+
+
+def open_sink(source: str, dest: Optional[str], out_meta: VideoMeta,
+              options: RenderOptions, overlay=None):
+    """The encode paths' frame sink for ``out_meta``-sized frames on the
+    device: the file (cropped size), ``--preview``/``--display`` around
+    it, then ``overlay`` (a function that wraps a sink in the ``--debug``
+    HUD), all on the :class:`AsyncFrameWriter` thread, and outermost the
+    ``--crop W:H[:X:Y]`` rectangle, sliced before the readback so that
+    the HUD draws on the cropped frame (the JAX package's nesting)."""
+    write_meta, crop_r = apply_crop_rect(out_meta, options)
+    sink = wrap_preview(
+        open_writer(None if options.no_output else dest, write_meta,
+                    encoder=options.encoder, **_passthrough_kwargs(source, options)),
+        options)
+    if overlay is not None:
+        sink = overlay(sink)
+    writer = AsyncFrameWriter(sink)
+    return CropSink(writer, crop_r) if crop_r else writer
 
 
 def _input_camera(meta: VideoMeta, o: RenderOptions) -> Camera:
@@ -881,7 +1320,7 @@ class FrameWarper:
     one global level instead."""
 
     def __init__(self, in_cam: Camera, out_cam: Camera, max_correction_deg: float = 8.0,
-                 prefilter: bool = False, interp: str = "bilinear", device="cpu"):
+                 prefilter: bool = False, interp: str = "bilinear", device="cuda"):
         if interp not in INTERPS:
             raise ValueError(
                 f"--interp must be bilinear, bicubic or lanczos, got {interp!r}")
@@ -957,11 +1396,33 @@ def encode(source: str, dest: Optional[str], traj: Trajectory,
     out_meta = VideoMeta(width=warper.out_w, height=warper.out_h,
                          fps=output_fps(options, meta),
                          num_frames=traj.num_frames)
-    sink = open_writer(None if options.no_output else dest, out_meta,
-                       encoder=options.encoder, **_passthrough_kwargs(source, options))
-    _batched_encode_loop(reader, sink, corrections, warper.warp_yuv_batch,
+    overlay = _rotation_overlay(traj, corrections) if options.debug else None
+    writer = open_sink(source, dest, out_meta, options, overlay)
+    _batched_encode_loop(reader, writer, corrections, warper.warp_yuv_batch,
                          options, prof, first, last, traj.num_frames, dev)
     return out_meta
+
+
+def _rotation_overlay(traj: Trajectory, corrections: np.ndarray):
+    """``--debug``'s HUD for the rotation family: each frame's correction
+    angle as text, the measured and correction angles over the clip as
+    curves (a rolling-shutter stack shows its centre tile row)."""
+    from video_annotator_tpu_torch.pipeline.debug import (
+        DebugOverlayWriter,
+        rotation_angles_deg,
+    )
+
+    corr = np.asarray(corrections, np.float32)
+    corr_deg = rotation_angles_deg(corr if corr.ndim == 3 else corr[:, corr.shape[1] // 2])
+    meas_deg = rotation_angles_deg(np.asarray(traj.rotations(), np.float32)[:len(corr_deg)])
+
+    def overlay(sink):
+        hud = DebugOverlayWriter(sink, total=traj.num_frames,
+                                 curves={"measured deg": meas_deg, "correction deg": corr_deg})
+        hud.text = {t: f"frame {t}  correction {corr_deg[t]:.2f} deg"
+                    for t in range(len(corr_deg))}
+        return hud
+    return overlay
 
 
 def _scanline_corrections(source: str, traj: Trajectory, corrections: np.ndarray,
@@ -995,13 +1456,13 @@ def _scanline_corrections(source: str, traj: Trajectory, corrections: np.ndarray
                             fractions).cpu().numpy()
 
 
-def _batched_encode_loop(reader, sink, corrections, warp_batch_fn, options,
+def _batched_encode_loop(reader, writer, corrections, warp_batch_fn, options,
                          prof, first, last, total, device):
     """Device-batched encode: prefetched frames, per-batch rotation stacks
     ((T, 3, 3), or (T, ny, 3, 3) with ``--rolling-shutter``) uploaded up
     front, the tail padded with its last frame (padded outputs
-    dropped), outputs read back and written on a worker thread."""
-    writer = AsyncFrameWriter(sink)
+    dropped), outputs given to ``writer`` (:func:`open_sink`: read back
+    and written on a worker thread)."""
     corr = np.asarray(corrections, np.float32)
     batch = max(1, int(options.warp_batch or DEFAULT_WARP_BATCH))
     rots_dev = [
@@ -1121,8 +1582,8 @@ def encode_2d(source: str, dest: Optional[str], traj: Trajectory,
 
     out_meta = VideoMeta(width=out_w, height=out_h, fps=output_fps(options, meta),
                          num_frames=traj.num_frames)
-    writer = open_writer(None if options.no_output else dest, out_meta,
-                         encoder=options.encoder, **_passthrough_kwargs(source, options))
+    overlay = _2d_overlay(traj, corrections) if options.debug else None
+    writer = open_sink(source, dest, out_meta, options, overlay)
     if traj.kind == "similarity" and dev.type == "cuda":
         pwarper = SimilarityWarper(meta.width, meta.height, interp=options.interp,
                                    out_size=(out_h, out_w))
@@ -1150,6 +1611,27 @@ def encode_2d(source: str, dest: Optional[str], traj: Trajectory,
                          dataclasses.replace(options, warp_batch=1), prof,
                          first, last, traj.num_frames, dev)
     return out_meta
+
+
+def _2d_overlay(traj: Trajectory, corrections: np.ndarray):
+    """``--debug``'s HUD for the 2D families: each frame's correction
+    shift as text, the measured and correction shifts over the clip as
+    curves, and a similarity's correction angle."""
+    from video_annotator_tpu_torch.pipeline.debug import DebugOverlayWriter
+
+    corr = np.asarray(corrections, np.float32)
+    meas = np.asarray(traj.params, np.float32)[:len(corr)]
+    curves = {"measured px": np.linalg.norm(meas[:, :2], axis=1),
+              "correction px": np.linalg.norm(corr[:, :2], axis=1)}
+    if corr.shape[1] >= 3:  # similarity: (dx, dy, angle, log_scale)
+        curves["correction deg"] = np.degrees(np.abs(corr[:, 2]))
+
+    def overlay(sink):
+        hud = DebugOverlayWriter(sink, total=traj.num_frames, curves=curves)
+        hud.text = {k: f"frame {k}  correction {np.linalg.norm(corr[k, :2]):.1f} px"
+                    for k in range(len(corr))}
+        return hud
+    return overlay
 
 
 def _analyse_family(family: str, source: str, options: RenderOptions, prof,
@@ -1204,7 +1686,6 @@ def render(source: str, dest: Optional[str],
     options = options or RenderOptions()
     prof = profiler or StageProfiler()
     family = check_family(options)
-    check_ported(options)
     if options.streaming and not options.gyro:
         from video_annotator_tpu_torch.pipeline.streaming import render_streaming
 

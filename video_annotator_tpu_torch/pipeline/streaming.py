@@ -40,8 +40,8 @@ import numpy as np
 import torch
 
 from video_annotator_tpu_torch import so3
-from video_annotator_tpu_torch.io.prefetch import AsyncFrameWriter, DevicePrefetcher
-from video_annotator_tpu_torch.io.video import VideoMeta, open_writer
+from video_annotator_tpu_torch.io.prefetch import DevicePrefetcher, DeviceReduceSink
+from video_annotator_tpu_torch.io.video import VideoMeta
 from video_annotator_tpu_torch.pipeline.profiler import Progress, StageProfiler
 from video_annotator_tpu_torch.pipeline.render import (
     DEFAULT_WARP_BATCH,
@@ -50,11 +50,10 @@ from video_annotator_tpu_torch.pipeline.render import (
     RenderOptions,
     Tracker,
     _estimate_up0,
-    _passthrough_kwargs,
     build_cameras,
-    check_ported,
     make_window_corrections,
     max_rotation_deg,
+    open_sink,
     open_trimmed,
     output_fps,
     resolve_analysis_mode,
@@ -89,7 +88,6 @@ def render_streaming(source: str, dest: Optional[str],
     """One-pass track + smooth + warp + write with a lookahead window."""
     options = options or RenderOptions()
     prof = profiler or StageProfiler()
-    check_ported(options)
     if options.analyse_only or options.encode_only:
         raise ValueError("--streaming is single-pass; drop -a/-c")
     if options.stabilise == "smooth" and options.smoother not in ("savgol", "kalman"):
@@ -122,9 +120,22 @@ def render_streaming(source: str, dest: Optional[str],
     n_expect = (last - first) if meta.num_frames else 0
     out_meta = VideoMeta(width=warper.out_w, height=warper.out_h,
                          fps=output_fps(options, meta), num_frames=n_expect)
-    writer = AsyncFrameWriter(open_writer(None if options.no_output else dest,
-                                          out_meta, encoder=options.encoder,
-                                          **_passthrough_kwargs(source, options)))
+    overlay = None
+    if options.device_sink:
+        # The frames fold into a checksum on the device: no readback, no
+        # writer thread, none of the host wrappers (crop, HUD, preview).
+        writer = DeviceReduceSink()
+    else:
+        def hud(sink):
+            # The corrections come a batch at a time here, so the HUD is
+            # text only: no curves over the whole clip to plot up front.
+            nonlocal overlay
+            from video_annotator_tpu_torch.pipeline.debug import DebugOverlayWriter
+
+            overlay = DebugOverlayWriter(sink)
+            return overlay
+        writer = open_sink(source, dest, out_meta, options,
+                           hud if options.debug else None)
     batch = max(1, int(options.warp_batch or DEFAULT_WARP_BATCH))
     want_radius = options.stabilise_radius if options.stabilise == "smooth" else 0
 
@@ -171,6 +182,12 @@ def render_streaming(source: str, dest: Optional[str],
             # two-phase encode (exp of the saved log, on the host), so both
             # paths smooth the same bits and render the same frames.
             corr = batch_corr(so3.exp(so3.log(window).cpu()))
+        if overlay is not None:
+            from video_annotator_tpu_torch.pipeline.debug import rotation_angles_deg
+
+            degs = rotation_angles_deg(corr.cpu().numpy())
+            for i in range(n):
+                overlay.text[t0 + i] = f"frame {t0 + i}  correction {degs[i]:.2f} deg"
         ys, us, vs = zip(*([frames[i] for i in range(n)] + [frames[n - 1]] * (batch - n)))
         with prof.stage("warp"):
             outs = warper.warp_yuv_batch(ys, us, vs, corr)
