@@ -163,7 +163,27 @@ the last line is printed):
    tile rows, and ``integrate_gyro`` over 240 000 samples (10 minutes at
    400 Hz) on the card, with the largest angle between it and a float64
    sequential scan of the same float32 inputs.
-5. A JSON line of per-kernel results, then the device line.
+5. The tools, each with every launch count at 0 just before it and read
+   just after:
+   a. ``calibrate``: 8 chessboard views of a 3840x2880 fisheye camera
+      (the tests' camera and poses scaled by 6) written as y4m; ``python
+      -m video_annotator_tpu_torch calibrate board.y4m --device cuda -o
+      params.xml --show-undistorted DIR`` in a child process, its fit
+      within the tests' tolerances of the true camera scaled by 6 and
+      under 1 px RMS; the same fit in this process, timed twice (the first
+      fit of a process warms ``torch.func``); then
+      ``show_undistorted`` in this process (K1's float one-frame kernel),
+      its 5 PNGs equal to the child's and within one count of the plain
+      warp of the same frames;
+   b. ``tools/quality.py --n 48`` at its 640x480: 18 rows written, the
+      nine rows that track at scale 1 under 0.1 deg of trajectory RMS,
+      every stabilised row with a positive reduction, except the scale 0.5
+      and 0.25 rows, printed, not gated (K2 stages one level or none at
+      320x240 and 160x120, as the JAX package's accelerator path does);
+   c. ``tools/fidelity.py --dispatches 4``: PSNR >= 45 dB in luma, U and V
+      and in every family, p50 and p99 ms per frame of the 32-frame
+      batch.
+6. A JSON line of per-kernel results, then the device line.
 """
 
 from __future__ import annotations
@@ -183,12 +203,13 @@ import time
 import numpy as np
 import torch
 
-from video_annotator_tpu_torch import benchtool, cli, so3
-from video_annotator_tpu_torch.camera import CameraModel, CameraPreset, get_output_camera
+from video_annotator_tpu_torch import benchtool, calibrate, cli, so3
+from video_annotator_tpu_torch.camera import Camera, CameraModel, CameraPreset, get_output_camera
 from video_annotator_tpu_torch.io import gopro, prefetch
 from video_annotator_tpu_torch.io.synthetic import (
     SyntheticCamera,
     SyntheticSource,
+    render_chessboard,
     render_frame,
     write_telemetry_mp4,
 )
@@ -199,7 +220,7 @@ from video_annotator_tpu_torch.ops.corners import detect_corners
 from video_annotator_tpu_torch.ops.affine import fit_similarity
 from video_annotator_tpu_torch.ops.lk import build_pyramid
 from video_annotator_tpu_torch.ops.phasecorr import phase_correlate
-from video_annotator_tpu_torch.ops.warp_plain import box_downsample, num_tile_rows
+from video_annotator_tpu_torch.ops.warp_plain import box_downsample, num_tile_rows, warp_image
 from video_annotator_tpu_torch.parallel import mesh as pmesh
 from video_annotator_tpu_torch.parallel import pipeline as ppipeline
 from video_annotator_tpu_torch.parallel import streams as pstreams
@@ -215,7 +236,7 @@ from video_annotator_tpu_torch.smoothing.rolling import (
     rs_row_rotations_gyro,
     scan_fractions,
 )
-from video_annotator_tpu_torch.tools import roofline
+from video_annotator_tpu_torch.tools import fidelity, quality, roofline
 
 W, H = 3840, 2880
 FRAMES = 64
@@ -331,6 +352,32 @@ CHAPTER_URI = "synthetic://shaky?w=640&h=480&n=12&fps=30&seed={seed}"
 MATCH_SETS = ({"start": 0.0, "end": 0.5, "score": "21-19"},
               {"start": 0.6, "end": 1.1, "score": "15-21"})
 SET_FRAMES = 15  # 0.5 s at 30 fps
+# The calibrate phase: 8 chessboard views of a fisheye camera at 4K, the
+# tests' 640x480 camera and poses (tests/test_calibrate.py) scaled by 6, and
+# the tests' tolerances of the truth (:171-176) scaled with it.
+BOARD_SCALE = 6
+BOARD_VIEWS = 8
+BOARD_CAMERA = (300.0, 302.0, 321.0, 239.0)  # fx, fy, cx, cy at 640x480
+BOARD_DIST = (0.02, -0.005, 0.0, 0.0)
+BOARD_TOL = (6.0, 6.0, 8.0, 8.0)  # px at 640x480
+MAX_BOARD_RMS = 1.0  # px, the tests' bound, not scaled
+UNDISTORTED_VIEWS = 5  # show_undistorted's default max_frames
+# The quality phase: the tool's 640x480 clip, 48 frames; the rows that
+# track at scale 1, held to the accuracy guard and to a positive reduction.
+# The rows at --analysis-scale 0.5 and 0.25 track at 320x240 and 160x120,
+# where K2 stages one pyramid level or none (the JAX package's accelerator
+# path does the same): printed, not gated.
+QUALITY_FRAMES = 48
+QUALITY_GATED = ("rotation_smooth_savgol", "rotation_smooth_paired",
+                 "rotation_smooth_paired_detect0", "rotation_smooth_kalman",
+                 "rotation_smooth_kalman_streaming", "rotation_fixed",
+                 "rotation_smooth_bicubic", "rotation_smooth_lanczos",
+                 "rotation_smooth_prefilter")
+QUALITY_KERNELS = ("warp_luma", "warp_chroma", "stage", "lk_level", "lk_level_frame",
+                   "warp_luma_bicubic", "warp_luma_lanczos", "warp_luma_rs", "warp_chroma_rs")
+FIDELITY_DISPATCHES = 4
+FIDELITY_KERNELS = ("warp_yuv_luma", "warp_yuv_chroma", "warp_luma", "warp_chroma",
+                    "warp_yuv_luma_bicubic", "warp_yuv_luma_lanczos")
 
 
 def log(msg: str = "") -> None:
@@ -370,6 +417,26 @@ def u8_agreement(got: torch.Tensor, want: torch.Tensor):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def zero_launches():
+    for k in cuda_lib.KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel object's launches since :func:`zero_launches`."""
+    return {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+
+
+def check_launched(name, needs) -> dict:
+    """Log the nonzero launch counts; each kernel of ``needs`` must have
+    launched. Returns every count."""
+    launches = launch_counts()
+    log(f"[{name}] launches {({n: c for n, c in launches.items() if c})}")
+    for kname in needs:
+        check(launches.get(kname, 0) > 0, f"[{name}] kernel {kname} was not launched")
+    return launches
 
 
 def phase_build():
@@ -954,8 +1021,7 @@ def drive(name, argv, label, needs, frames=FRAMES, grid=False):
     for mod, attr, key, prof_arg in TIMED:
         setattr(mod, attr, timed(attr, key, getattr(mod, attr), prof_arg))
     trender.resolve_analysis_mode = streaming.resolve_analysis_mode = resolve
-    for k in cuda_lib.KERNELS.values():
-        k.launches = 0
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
@@ -966,7 +1032,7 @@ def drive(name, argv, label, needs, frames=FRAMES, grid=False):
         trender.resolve_analysis_mode = streaming.resolve_analysis_mode = resolve_orig
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"[{name}] cli.main returned {rc}")
     log(f"[{name}] {' '.join(argv[3:])}: analysis mode {seen.get('mode')!r}; "
@@ -1280,8 +1346,7 @@ def check_one_frame_rs(dest, rot_y, which, dev):
     logged here and stay out of the renders' counts."""
     warper = stock_cameras()
     written = written_frames(dest, which)
-    for k in cuda_lib.KERNELS.values():
-        k.launches = 0
+    zero_launches()
     for t in which:
         planes = source_frame(dev, SOURCE, t)
         check_planes("one-frame rs, uint8", t, written[t],
@@ -1289,7 +1354,7 @@ def check_one_frame_rs(dest, rot_y, which, dev):
         check_planes("one-frame rs, float", t, written[t],
                      warper(*(p.to(torch.float32) for p in planes), rot_y[t]), dev)
     torch.cuda.synchronize()
-    launches = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+    launches = launch_counts()
     log(f"[one-frame rs] FrameWarper.warp_yuv and FrameWarper.__call__ on "
         f"{len(which)} frames, outside every render: launches {launches}")
     for name in ("warp_yuv_luma_rs", "warp_yuv_chroma_rs", "warp_frame_f32_rs",
@@ -1381,8 +1446,7 @@ def phase_device_sink(written, y4m_seconds, dev, label):
     options = stock_options(streaming=True, no_output=True, device_sink=True)
     original = streaming.DeviceReduceSink
     streaming.DeviceReduceSink = Recording
-    for k in cuda_lib.KERNELS.values():
-        k.launches = 0
+    zero_launches()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1391,7 +1455,7 @@ def phase_device_sink(written, y4m_seconds, dev, label):
         secs = time.perf_counter() - t0
     finally:
         streaming.DeviceReduceSink = original
-    launches = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+    launches = launch_counts()
     for kname in ("warp_luma", "warp_chroma", "stage", "lk_level"):
         check(launches[kname] > 0, f"[device-sink] kernel {kname} was not launched")
     want = int32_checksum(written)
@@ -2014,6 +2078,190 @@ def phase_telemetry_parts(dev, label):
           "the prefix product drifted from the sequential scan")
 
 
+# --- calibrate, quality and fidelity ---------------------------------------
+
+
+def board_poses():
+    """The tests' 8 board poses (tests/test_calibrate.py, seed 4)."""
+    rng = np.random.default_rng(4)
+    poses = []
+    for _ in range(BOARD_VIEWS):
+        w = torch.from_numpy((rng.normal(size=3) * np.array([0.22, 0.22, 0.1])).astype(np.float32))
+        t = np.array([-4.0 + rng.uniform(-1.2, 1.2), -2.5 + rng.uniform(-1.0, 1.0),
+                      rng.uniform(11.0, 16.0)])
+        poses.append((so3.exp(w).numpy(), t))
+    return poses
+
+
+def read_fit(path):
+    """(fx, fy, cx, cy, dist, rms) of a FileStorage written by ``calibrate``."""
+    import cv2
+
+    fs = cv2.FileStorage(path, cv2.FILE_STORAGE_READ)
+    try:
+        k = fs.getNode("camera_matrix").mat()
+        d = fs.getNode("distortion_coefficients").mat().ravel()
+        rms = fs.getNode("avg_reprojection_error").real()
+    finally:
+        fs.release()
+    return float(k[0, 0]), float(k[1, 1]), float(k[0, 2]), float(k[1, 2]), d, rms
+
+
+def phase_calibrate(dev, label):
+    """``calibrate`` on 8 chessboard views of a fisheye camera at 4K: the
+    CLI in a child process (fit on the card, FileStorage out, undistorted
+    views), the fit held to the true camera; the same fit timed in this
+    process; then ``show_undistorted`` in this process with the launch
+    counts at 0 just before, its PNGs equal to the child's and within one
+    count of the plain warp of the same frames."""
+    import cv2
+
+    s = BOARD_SCALE
+    fx, fy, cx, cy = (v * s for v in BOARD_CAMERA)
+    true_cam = Camera.make(fx, fy, cx, cy, 640 * s, 480 * s, CameraModel.FISHEYE,
+                           dist=BOARD_DIST)
+    tmp = tempfile.mkdtemp(prefix="vat_torch_calibrate_")
+    try:
+        board = os.path.join(tmp, "board.y4m")
+        frames = render_chessboard(true_cam, board_poses())
+        writer = open_writer(board, trender.VideoMeta(true_cam.width, true_cam.height, 30))
+        uv = np.full((true_cam.height // 2, true_cam.width // 2), 128, np.uint8)
+        for y in frames:
+            writer.write((y, uv, uv))
+        writer.close()
+        params, views = os.path.join(tmp, "params.xml"), os.path.join(tmp, "views")
+        argv = [sys.executable, "-m", "video_annotator_tpu_torch", "calibrate", board,
+                "--device", "cuda", "-o", params, "--show-undistorted", views,
+                "--frames", str(BOARD_VIEWS), "--interval", "0"]
+        t0 = time.perf_counter()
+        done = subprocess.run(argv, capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli_s = time.perf_counter() - t0
+        check(done.returncode == 0, f"[calibrate] the CLI exited {done.returncode}: "
+              f"{done.stderr[-2000:]}")
+        got = read_fit(params)
+        log(f"[calibrate] {' '.join(argv[3:])}: exit 0 in {cli_s:.2f} s (process start, "
+            f"detection, fit, undistorted views); {done.stdout.splitlines()[0]}")
+        log(f"[calibrate] fit fx {got[0]:.3f} fy {got[1]:.3f} cx {got[2]:.3f} cy {got[3]:.3f} "
+            f"dist {np.round(got[4], 5).tolist()} rms {got[5]:.4f} px; true fx {fx} fy {fy} "
+            f"cx {cx} cy {cy} dist {list(BOARD_DIST)}")
+        for v, want, tol, what in zip(got[:4], (fx, fy, cx, cy), BOARD_TOL, "fx fy cx cy".split()):
+            check(abs(v - want) < tol * s, f"[calibrate] {what} {v} is off {want} by more than "
+                  f"{tol * s}")
+        check(got[5] < MAX_BOARD_RMS, f"[calibrate] rms {got[5]} px")
+
+        obj, img, size = calibrate.detect_board_views(board, max_views=BOARD_VIEWS,
+                                                      interval_s=0.0)
+        fit_s = []
+        for _ in range(2):  # the first fit of a process warms torch.func and its kernels
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cam, rms = calibrate.calibrate(obj, img, size, CameraModel.FISHEYE, device=dev)
+            fit_s.append(time.perf_counter() - t0)
+        rel = max(abs(a - b) / abs(b) for a, b in zip((cam.fx, cam.fy, cam.cx, cam.cy), got))
+        log(f"[calibrate] {label}: the fit alone ({len(img)} views of {len(obj)} corners, "
+            f"4000 Adam steps as a CUDA graph and the LM polish on the card) {fit_s[0]:.2f} s "
+            f"wall the first time in this process, {fit_s[1]:.2f} s the second; rms "
+            f"{rms:.4f} px; intrinsics within {rel:.2e} relative of the CLI's")
+        check(rel < 1e-3 and abs(rms - got[5]) < 0.01, "[calibrate] the fit is not the CLI's")
+
+        again = os.path.join(tmp, "again")
+        zero_launches()
+        n = calibrate.show_undistorted(cam, board, again, max_frames=UNDISTORTED_VIEWS,
+                                       interval_s=0.0, device=dev)
+        torch.cuda.synchronize()
+        launches = check_launched("calibrate", ("warp_frame_f32",))
+        check(n == UNDISTORTED_VIEWS and launches["warp_frame_f32"] == n,
+              f"[calibrate] {n} views, {launches['warp_frame_f32']} launches")
+        out_cam = Camera.make(cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+                              CameraModel.RECTILINEAR)
+        eye = torch.eye(3, device=dev)
+        worst = 0
+        for i in range(n):
+            name = f"undistorted_{i:03d}.png"
+            child = cv2.imread(os.path.join(views, name), cv2.IMREAD_GRAYSCALE)
+            mine = cv2.imread(os.path.join(again, name), cv2.IMREAD_GRAYSCALE)
+            check(child is not None and np.array_equal(child, mine),
+                  f"[calibrate] {name} differs between the CLI and show_undistorted")
+            src = torch.from_numpy(frames[i]).to(dev, torch.float32)
+            plain = np.clip(warp_image(src, out_cam, cam, eye).cpu().numpy(), 0,
+                            255).astype(np.uint8)
+            worst = max(worst, int(np.abs(child.astype(np.int16) - plain).max()))
+        log(f"[calibrate] {n} undistorted {cam.width}x{cam.height} views through K1's float "
+            f"one-frame kernel: equal to the CLI's PNGs, max |diff| {worst} against the "
+            f"plain warp")
+        check(worst <= 1, "[calibrate] an undistorted view is off the plain warp")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_quality(dev, label):
+    """``tools/quality.py --n 48`` at its 640x480: the 18 rows written, the
+    scale-1 tracking rows within the accuracy guard, every stabilised row
+    reducing shake; the launch counts at 0 just before."""
+    path = os.path.join(tempfile.mkdtemp(prefix="vat_torch_quality_"), "quality.json")
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = quality.main(["--n", str(QUALITY_FRAMES), "--device", "cuda", "--out", path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = check_launched("quality", QUALITY_KERNELS)
+    check(rc == 0, f"[quality] returned {rc}")
+    with open(path) as f:
+        rows = {r["config"]: r for r in json.load(f)}
+    shutil.rmtree(os.path.dirname(path))
+    log(f"[quality] {label}: {len(rows)} rows at 640x480 x {QUALITY_FRAMES} frames in "
+        f"{wall:.2f} s")
+    def scaled(name):
+        return "_scale0" in name
+
+    for name, r in rows.items():
+        log(f"[quality] {name}: shake {r['value']} px ({r['hf_shake_deg_rms']} deg), "
+            f"reduction {r.get('reduction_db')} dB, trajectory RMS {r.get('traj_rms_deg')} deg"
+            + (" (not gated)" if scaled(name) else ""))
+    check(len(rows) == 18 and set(QUALITY_GATED) <= set(rows), "[quality] rows are missing")
+    for name in QUALITY_GATED:
+        check(rows[name]["traj_rms_deg"] < MAX_RMS_DEG,
+              f"[quality] {name}: trajectory RMS {rows[name]['traj_rms_deg']} deg")
+    for name, r in rows.items():
+        if "reduction_db" in r and not scaled(name):
+            check(r["reduction_db"] > 0, f"[quality] {name} does not reduce the shake")
+    return launches
+
+
+def phase_fidelity(dev, label):
+    """``tools/fidelity.py --dispatches 4``: PSNR >= 45 dB in every plane
+    and family, p50 and p99 ms per frame; the launch counts at 0 just
+    before."""
+    path = os.path.join(tempfile.mkdtemp(prefix="vat_torch_fidelity_"), "fidelity.json")
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = fidelity.main(["--dispatches", str(FIDELITY_DISPATCHES), "--out", path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = check_launched("fidelity", FIDELITY_KERNELS)
+    check(rc == 0, f"[fidelity] returned {rc}")
+    with open(path) as f:
+        r = json.load(f)
+    shutil.rmtree(os.path.dirname(path))
+    log(f"[fidelity] {label}, {r['geometry']} at {r['correction_deg']} deg: PSNR luma "
+        f"{r['psnr_luma_db']} dB, U {r['psnr_chroma_u_db']} dB, V {r['psnr_chroma_v_db']} dB "
+        f"against cv2.remap; warp_yuv_batch of {r['latency_batch']} frames, "
+        f"{r['dispatches_timed']} dispatches: p50 {r['p50_warp_ms_per_frame']} ms, p99 "
+        f"{r['p99_warp_ms_per_frame']} ms per frame ({wall:.2f} s in all)")
+    for name, fam in r["families"].items():
+        log(f"[fidelity] {name} ({fam['geometry']}): {fam['psnr_luma_db']} dB against "
+            f"{fam['oracle']}")
+    planes = (r["psnr_luma_db"], r["psnr_chroma_u_db"], r["psnr_chroma_v_db"])
+    check(min(planes) >= fidelity.PSNR_GATE_DB, "[fidelity] a plane is under 45 dB")
+    check(all(fam["psnr_luma_db"] >= fidelity.PSNR_GATE_DB for fam in r["families"].values()),
+          "[fidelity] a family is under 45 dB")
+    return launches
+
+
 # --- rows 6 and 9: K1's float frame batch and band ------------------------
 
 
@@ -2253,8 +2501,7 @@ def phase_roofline(dev, results, label):
     log(f"[roofline] the checks against plain and their timing: "
         f"{time.perf_counter() - t0:.1f} s")
 
-    for k in cuda_lib.KERNELS.values():
-        k.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     roof = roofline.run(dev)
     roof_s = time.perf_counter() - t0
@@ -2262,7 +2509,7 @@ def phase_roofline(dev, results, label):
     bench_rc = benchtool.main(BENCHTOOL_ARGS)
     torch.cuda.synchronize()
     bench_s = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+    launches = launch_counts()
     log(f"[roofline] launches {launches}")
     check(bench_rc == 0, f"benchtool {' '.join(BENCHTOOL_ARGS)} returned {bench_rc}")
     probes = ([k.name for k in roofline_kernel.FMA_CHAIN.values()]
@@ -2343,8 +2590,7 @@ def phase_parallel(dev, label):
         mats = torch.from_numpy(similarity.SimilarityWarper.matrices(sim.cpu().numpy())).to(dev)
         shifts = torch.linspace(-12.5, 12.5, STREAMS * 2, device=dev).reshape(STREAMS, 2)
         sim_warper = similarity.SimilarityWarper(W, H)
-        for k in cuda_lib.KERNELS.values():
-            k.launches = 0
+        zero_launches()
         step = ppipeline.build_pipeline_step(mesh, in_cam, out_cam, smooth_radius=30,
                                              max_corners=PIPE_CORNERS)
         (warped, corrections), pipe_ms = timed_ms(lambda: step(clip, with_corrections=True))
@@ -2376,7 +2622,7 @@ def phase_parallel(dev, label):
                                                     interp=interp)
                     for r in range(n)])[:size[0]])
         torch.cuda.synchronize()
-        launches = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+        launches = launch_counts()
     finally:
         dist.destroy_process_group()
     log(f"[parallel] launches {launches}")
@@ -2585,6 +2831,9 @@ def main(argv=None) -> int:
     phase_kalman_window(dev, label)
     phase_2d_parts(dev, label)
     phase_telemetry_parts(dev, label)
+    for phase in (phase_calibrate, phase_quality, phase_fidelity):
+        for name, count in phase(dev, label).items():
+            launches[name] = launches.get(name, 0) + count
     log(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, k in cuda_lib.KERNELS.items():

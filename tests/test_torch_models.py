@@ -5,10 +5,11 @@ trajectories on a synthetic clip, and ``encode_2d`` driven by a
 JAX-written trajectory.
 
 Both packages compute in float32; where the order of operations differs
-the tolerance says by how much. The JAX analyser tracks with its XLA
-``pyramidal_lk`` on the CPU (float frames), the port with the plain
-version of kernel K2 (uint8-staged frames), so the similarity
-trajectories differ by hundredths of a pixel per frame."""
+the tolerance says by how much. Both analysers track with their plain
+``pyramidal_lk`` on the CPU (float frames), so the similarity
+trajectories differ by float32 rounding, accumulated over the clip; on
+the card's branch (``k2_branch``: K2's plain twin over uint8-staged
+frames) by hundredths of a pixel per frame."""
 
 import dataclasses
 import os
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 
 from test_torch_pipeline import assert_u8_close, read_frames
 from test_torch_streaming import few_threads  # noqa: F401 (autouse fixture)
+from test_torch_tracked import k2_branch  # noqa: F401 (fixture)
 from video_annotator_tpu.models import FILTER_ALIASES as JFILTER_ALIASES
 from video_annotator_tpu.models import deshake as jdeshake
 from video_annotator_tpu.models import similarity as jsimilarity
@@ -297,11 +299,26 @@ def test_analyse_similarity_matches_jax(scale):
         ("similarity", 8)
     assert (ttraj.width, ttraj.height, ttraj.fps) == (640, 480, jtraj.fps)
     assert ttraj.params.dtype == np.float64 and np.all(ttraj.params[0] == 0)
+    # The same float LK summed in another order, accumulated over 7 pairs.
+    np.testing.assert_allclose(ttraj.params[:, :2], jtraj.params[:, :2], atol=1e-3)
+    np.testing.assert_allclose(ttraj.params[:, 2:], jtraj.params[:, 2:], atol=1e-5)
+    assert np.abs(ttraj.params[-1, :2]).max() > 1.0  # the clip does move
+
+
+@pytest.mark.parametrize("scale", ["auto", 0.5])
+def test_k2_analyse_similarity_matches_jax(k2_branch, scale):
+    """The card's branch: K3-staged pyramids carried frame to frame into
+    K2's per-frame form."""
+    jtraj = jsimilarity.analyse_similarity(CLIP, JRenderOptions(analysis_scale=scale))
+    ttraj = similarity.analyse_similarity(
+        CLIP, trender.RenderOptions(analysis_scale=scale), device="cpu")
+    assert (ttraj.kind, ttraj.num_frames) == (jtraj.kind, jtraj.num_frames) == \
+        ("similarity", 8)
     # uint8-staged plain K2 against JAX's float XLA LK: hundredths of a
     # pixel per fitted frame pair, accumulated over 7 pairs.
     np.testing.assert_allclose(ttraj.params[:, :2], jtraj.params[:, :2], atol=0.15)
     np.testing.assert_allclose(ttraj.params[:, 2:], jtraj.params[:, 2:], atol=5e-4)
-    assert np.abs(ttraj.params[-1, :2]).max() > 1.0  # the clip does move
+    assert np.abs(ttraj.params[-1, :2]).max() > 1.0
 
 
 @pytest.mark.parametrize("scale", ["auto", 0.5])

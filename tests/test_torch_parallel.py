@@ -37,6 +37,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
+from test_torch_tracked import k2_branch  # noqa: F401 (fixture)
 from test_torch_warp import to_port
 from video_annotator_tpu.camera import CameraPreset, get_output_camera, get_preset_camera
 from video_annotator_tpu.io.synthetic import SyntheticCamera as JSyntheticCamera
@@ -427,6 +428,45 @@ def test_plain_stream_warp_matches_jax(ranks, size):
     unsharded = tstreams.warp_streams_sharded(torch.from_numpy(frames), torch.from_numpy(rots),
                                               to_port(jout), to_port(jin), out_size=size)
     torch.testing.assert_close(got, unsharded, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("branch", ["plain", "kernel"])
+def test_track_pairs_matches_jax_lk(request, branch):
+    """The step's tracking of one stream against JAX's corners and the
+    JAX LK of the same branch, at the step's levels and iterations: on
+    the CPU's branch the XLA ``pyramidal_lk`` (the same float LK, summed
+    in another order), on the card's (``k2_branch``: K3's pair staging
+    into K2's pairs form) the Pallas pairs LK in interpret mode, whose
+    window rule clears the status of points near the bottom rows that
+    the XLA LK keeps."""
+    from video_annotator_tpu.ops.corners import detect_corners
+    from video_annotator_tpu.ops.lk import pyramidal_lk
+    from video_annotator_tpu.ops.lk_pallas import (
+        lk_pack_pyramid_pairs,
+        pyramidal_lk_pallas_pairs,
+    )
+
+    frames, in_cam, _ = clip()
+    seq = frames[0]
+    jpts, jvalid = jax.vmap(lambda f: detect_corners(f, max_corners=32, min_distance=8,
+                                                     border=4))(jnp.asarray(seq[:-1]))
+    if branch == "kernel":
+        request.getfixturevalue("k2_branch")
+        jnew, jstatus = pyramidal_lk_pallas_pairs(
+            lk_pack_pyramid_pairs(jnp.asarray(seq), levels=2, interpret=True),
+            seq.shape[-2:], jpts, jvalid, iters=5, interpret=True)
+        flow_atol, min_status_agreement = 0.01, 0.99  # tests/test_torch_lk.py
+    else:
+        jnew, jstatus = jax.vmap(lambda a, b, q, v: pyramidal_lk(a, b, q, v, levels=2, iters=5))(
+            jnp.asarray(seq[:-1]), jnp.asarray(seq[1:]), jpts, jvalid)
+        flow_atol, min_status_agreement = 1e-3, 0.995
+    pts, new_pts, status = tpipeline.track_pairs(torch.from_numpy(seq), in_cam, 32)
+    np.testing.assert_array_equal(pts.numpy(), np.asarray(jpts))
+    got, want = status.numpy(), np.asarray(jstatus)
+    assert (got == want).mean() >= min_status_agreement
+    both = got & want
+    assert both.sum() > 150
+    np.testing.assert_allclose(new_pts.numpy()[both], np.asarray(jnew)[both], atol=flow_atol)
 
 
 @functools.lru_cache(maxsize=1)

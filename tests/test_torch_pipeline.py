@@ -34,6 +34,17 @@ MIN_EQUAL = 0.999
 ANGLE_TOL_DEG = 0.05  # per frame, port vs JAX (the JAX CPU path tracks with XLA LK)
 
 
+@pytest.fixture(autouse=True)
+def few_threads():
+    """Each render runs torch on three threads (decode, main, writer); at
+    these sizes a full intra-op pool per thread only oversubscribes the
+    cores that parallel test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def read_frames(path):
     r = open_reader(str(path))
     frames = [tuple(np.array(p) for p in f) for f in r]
@@ -190,9 +201,12 @@ def _render_actions(parser):
 
 
 def test_cli_render_surface_matches_jax():
+    """The JAX CLI's render options, plus ``--device`` (the port's form of
+    ``JAX_PLATFORMS=cpu``)."""
     want = _render_actions(jcli.build_parser())
     got = _render_actions(tcli.build_parser())
-    assert set(got) == set(want)
+    assert set(got) == set(want) | {"device"}
+    assert (got["device"].default, got["device"].choices) == ("cuda", ("cuda", "cpu"))
     for dest, w in want.items():
         g = got[dest]
         for attr in ("option_strings", "default", "choices", "nargs", "const",
@@ -226,13 +240,14 @@ def test_cli_refuses_to_run_without_a_card(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-def test_cli_other_subcommands_are_not_ported(tmp_path, capsys):
-    """Only ``calibrate`` is left unported (exit 2); every other
-    subcommand runs, and reports a pipeline error with exit 1 as the JAX
-    CLI does: here ``join`` of a code with no chapters and ``probe`` of
-    a missing file, while ``workflow tag`` writes its metadata."""
-    assert tcli.main(["calibrate", "corners.npz"]) == 2
-    assert "calibrate is not yet ported" in capsys.readouterr().err
+def test_cli_other_subcommands_run(tmp_path, capsys):
+    """Every subcommand runs, and reports a pipeline error with exit 1 as
+    the JAX CLI does: here ``calibrate`` of a missing ``.npz``, ``join``
+    of a code with no chapters and ``probe`` of a missing file, while
+    ``workflow tag`` writes its metadata."""
+    missing = str(tmp_path / "corners.npz")
+    assert tcli.main(["calibrate", missing, "--device", "cpu"]) == 1
+    assert "corners.npz" in capsys.readouterr().err
     d = str(tmp_path)
     assert tcli.main(["join", "1234", "-o", str(tmp_path / "x.mp4"), "--directory", d]) == 1
     assert "no segments found for code '1234'" in capsys.readouterr().err
@@ -241,6 +256,39 @@ def test_cli_other_subcommands_are_not_ported(tmp_path, capsys):
     assert tcli.main(["workflow", "tag", "1234", "--directory", d, "--sets-json",
                       '[{"start": 0, "end": 1, "score": "21-19"}]']) == 0
     assert (tmp_path / "match_1234.json").exists()
+
+
+@pytest.mark.parametrize("argv", [
+    ["render", "synthetic://shaky?w=64&h=48&n=2", "o.y4m", "--device", "cuda"],
+    ["compare", "synthetic://shaky?w=64&h=48&n=2", "o.y4m"],
+    ["workflow", "stabilise", "0001"],
+    ["calibrate", "corners.npz"],
+])
+def test_cli_asks_for_the_card_unless_told_cpu(monkeypatch, capsys, argv):
+    """``--device cuda`` (the default) without a card exits 1: the CLI
+    never moves to the CPU by itself."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tcli.main(argv) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_cli_render_on_the_cpu_matches_the_jax_cli(tmp_path, capsys):
+    """``render --device cpu`` against the JAX CLI on the CPU: the same
+    frames within one count and the same trajectory file."""
+    src = "synthetic://shaky?w=320&h=240&n=8"
+    jdest, tdest = str(tmp_path / "jax.y4m"), str(tmp_path / "torch.y4m")
+    assert jcli.main(["render", src, jdest, "--stabilise", "smooth"]) == 0
+    assert tcli.main(["render", src, tdest, "--stabilise", "smooth", "--device", "cpu"]) == 0
+    jmeta, jframes = read_frames(jdest)
+    tmeta, tframes = read_frames(tdest)
+    assert (tmeta.width, tmeta.height, tmeta.num_frames) == \
+        (jmeta.width, jmeta.height, jmeta.num_frames) == (jmeta.width, jmeta.height, 8)
+    for tf, jf in zip(tframes, jframes):
+        for tp, jp in zip(tf, jf):
+            assert_u8_close(tp, jp)
+    ttraj = Trajectory.load(tdest + ".traj.npz")
+    jtraj = JTrajectory.load(jdest + ".traj.npz")
+    assert angle_deg(ttraj.rotations(), jtraj.rotations()).max() <= ANGLE_TOL_DEG
 
 
 def _port_sources():

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_pipeline import ANGLE_TOL_DEG, PRESET, angle_deg
+from test_torch_pipeline import ANGLE_TOL_DEG, PRESET, angle_deg, few_threads  # noqa: F401
 from video_annotator_tpu.camera import CameraPreset as JCameraPreset
 from video_annotator_tpu.pipeline.render import RenderOptions as JRenderOptions
 from video_annotator_tpu.pipeline.render import render as jrender
@@ -31,16 +31,6 @@ SRC = "synthetic://shaky?w=256&h=192&n=24&seed=5&shake=0.004&pan=0.0"
 OPTS = dict(preset=CameraPreset.GOPRO_H4B_WIDE43_MEASURED, warp_batch=5)
 MAX_DIFFERING = 0.05  # share of pixels one count apart (the rotation round trip)
 
-
-@pytest.fixture(autouse=True)
-def few_threads():
-    """Each render runs torch on three threads (decode, main, writer); at
-    these sizes a full intra-op pool per thread only oversubscribes the
-    cores that parallel test workers share."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def frames(path):

@@ -186,9 +186,7 @@ def test_stabilise_matches_jax_and_is_idempotent(tmp_path):
     """Each chapter's trajectory on the CPU within the tracked analyser's
     tolerance of JAX's, marked complete, and left alone by a second run.
     The chapters are synthetic shaky clips at 640x480, as the tracked
-    analyser's own tests use (the port's tracker, like the JAX package's
-    TPU path, keeps its coarse guess on pyramid levels narrower than K2's
-    256-column window, so a clip under 256 px wide tracks nothing)."""
+    analyser's own tests use."""
     d = tmp_path
     write_synthetic(d / "GOPR5555.y4m", "synthetic://shaky?w=640&h=480&n=12&seed=1")
     write_synthetic(d / "GP015555.y4m", "synthetic://shaky?w=640&h=480&n=6&seed=2")
@@ -294,9 +292,14 @@ def _subparsers(parser):
 
 @pytest.mark.parametrize("command", ["join", "compare", "workflow", "probe"])
 def test_cli_subcommand_surface_matches_jax(command):
+    """The JAX CLI's options, plus ``--device`` where the subcommand runs
+    on a device (the port's form of ``JAX_PLATFORMS=cpu``)."""
     want = {a.dest: a for a in _subparsers(jcli.build_parser())[command]._actions}
     got = {a.dest: a for a in _subparsers(tcli.build_parser())[command]._actions}
-    assert set(got) == set(want)
+    extra = {"device"} if command in ("compare", "workflow") else set()
+    assert set(got) == set(want) | extra
+    for dest in extra:
+        assert (got[dest].default, got[dest].choices) == ("cuda", ("cuda", "cpu"))
     for dest, w in want.items():
         for attr in ("option_strings", "default", "choices", "nargs", "const", "required"):
             assert getattr(got[dest], attr) == getattr(w, attr), (dest, attr)

@@ -1,10 +1,13 @@
 """Command-line interface of the PyTorch/CUDA port.
 
 The JAX package's subcommands with the same option strings, defaults and
-choices (the frozen v1.0 surface), ``calibrate`` aside, which exits 2 as
-not yet ported:
+choices (the frozen v1.0 surface), plus ``--device {cuda,cpu}`` on
+``render``, ``compare``, ``workflow`` (its ``stabilise``) and
+``calibrate``: the card by default, the CPU (the kernels' plain
+versions) only when asked for, the port's form of the JAX package's
+``JAX_PLATFORMS=cpu``. Without a card, ``--device cuda`` exits 1.
 
-- ``render`` runs every ported path on a CUDA device: the rotation family
+- ``render`` runs every ported path: the rotation family
   (two-phase or ``--streaming``), ``--filter vidstab`` and ``--filter
   deshake``, and the ``--compare`` grid, with ``--interp``,
   ``--projection``, ``--prefilter``, ``--crop`` (bare, or ``W:H[:X:Y]`` in
@@ -13,8 +16,11 @@ not yet ported:
   torch.profiler trace of the CPU and CUDA activity, which Perfetto and
   TensorBoard open);
 - ``compare`` is ``render --compare`` with ``--stabilise none``;
-- ``workflow stabilise`` analyses every chapter on the card and
-  ``workflow split`` renders each set in a child process of this CLI;
+- ``workflow stabilise`` analyses every chapter on the chosen device and
+  ``workflow split`` renders each set in a child process of this CLI
+  (``--render-args`` passed on unchanged, ``--device`` among them);
+- ``calibrate`` fits camera intrinsics from chessboard or circles-grid
+  footage, an image list, a ``.npz`` of detections or a settings file;
 - ``join``, ``probe``, ``workflow join``, ``workflow tag`` and ``workflow
   encode`` are host IO and need no card.
 
@@ -23,6 +29,8 @@ Usage::
     python -m video_annotator_tpu_torch render in.y4m out.y4m --stabilise smooth
     python -m video_annotator_tpu_torch render in.y4m out.y4m --crop 'iw/2:ih/2'
     python -m video_annotator_tpu_torch render in.y4m grid.y4m --compare none,smooth,vidstab,deshake
+    python -m video_annotator_tpu_torch render in.y4m out.y4m --stabilise smooth --device cpu
+    python -m video_annotator_tpu_torch calibrate board.y4m -o camera.xml --show-undistorted views
     python -m video_annotator_tpu_torch join 0001 -o match_0001.mp4
     python -m video_annotator_tpu_torch workflow split 0001 --render-args "--stabilise smooth"
 """
@@ -32,7 +40,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-_NOT_PORTED = ("calibrate",)
+DEVICES = ("cuda", "cpu")
 
 
 def _parse_time(value):
@@ -72,6 +80,13 @@ class _CompatAction(argparse.Action):
         hint = f"; {self._hint}" if self._hint else ""
         print(f"note: {option_string} is accepted for reference "
               f"compatibility and has no effect here{hint}", file=sys.stderr)
+
+
+def _add_device(parser):
+    parser.add_argument("--device", default="cuda", choices=DEVICES,
+                        help="where the work runs: cuda (default; the CUDA "
+                             "kernels, exits 1 without a card) or cpu (their "
+                             "plain PyTorch versions)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -295,6 +310,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "alongside the per-stage wall-clock report")
     r.add_argument("-v", "--verbose", action="store_true",
                    help="Print the per-stage profiler report")
+    _add_device(r)
 
     c = sub.add_parser("compare", help="Render a comparison grid of stabilizers")
     c.add_argument("source")
@@ -306,6 +322,7 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--no-cell-labels", dest="cell_labels", action="store_false",
                    help="Don't burn each cell's mode name into its corner")
     c.add_argument("-v", "--verbose", action="store_true")
+    _add_device(c)
 
     wf = sub.add_parser("workflow",
                         help="Match workflow: stabilise/join/tag/split/encode (concat.sh)")
@@ -318,6 +335,7 @@ def build_parser() -> argparse.ArgumentParser:
     wf.add_argument("--encoder", default=None)
     wf.add_argument("--render-args", default=None,
                     help="Extra args passed to each split render (space-separated)")
+    _add_device(wf)
 
     pr = sub.add_parser("probe",
                         help="Inspect a source: stream metadata + GPMF telemetry "
@@ -325,9 +343,46 @@ def build_parser() -> argparse.ArgumentParser:
                              "src/utils.ts:3-11)")
     pr.add_argument("source")
 
-    for name in _NOT_PORTED:
-        s = sub.add_parser(name, help="not yet ported (ROADMAP.md)")
-        s.add_argument("args", nargs=argparse.REMAINDER)
+    k = sub.add_parser(
+        "calibrate",
+        help="Fit fisheye intrinsics from calibration-target footage (the "
+             "reference tool's workflow) or pre-extracted points",
+    )
+    k.add_argument("points", nargs="?", default=None,
+                   help="video/image-list to detect a target in, or .npz "
+                        "with object_points/image_points arrays (omit when "
+                        "--settings provides Input)")
+    k.add_argument("--settings", default=None,
+                   help="reference-format XML/YAML settings file "
+                        "(in_VID5.xml schema); runs the whole workflow and "
+                        "writes Write_outputFileName")
+    k.add_argument("--model", default="fisheye", choices=["fisheye", "rectilinear"])
+    k.add_argument("--pattern", default="chessboard",
+                   choices=["chessboard", "circles", "acircles"],
+                   help="target type (camera_calibration.cpp:356-363)")
+    k.add_argument("--size", default=None, help="WxH image size override")
+    k.add_argument("--board", default="9x6",
+                   help="inner-corner grid COLSxROWS (in_VID5.xml: 9x6)")
+    k.add_argument("--square-size", type=float, default=1.0,
+                   help="board square edge length (output units)")
+    k.add_argument("--frames", type=int, default=25,
+                   help="max board views to collect (in_VID5.xml: 25)")
+    k.add_argument("--interval", type=float, default=0.25,
+                   help="seconds between detection attempts")
+    k.add_argument("--flip-vertical", action="store_true",
+                   help="flip input frames around the horizontal axis "
+                        "(Input_FlipAroundHorizontalAxis)")
+    k.add_argument("-o", "--output", default=None,
+                   help="intrinsics output: .json, or FileStorage "
+                        ".xml/.yml/.yaml (saveCameraParams schema)")
+    k.add_argument("--show-undistorted", metavar="DIR", default=None,
+                   help="after fitting, undistort sampled input frames "
+                        "through the fitted camera (this framework's own "
+                        "warp, identity rotation) into DIR as PNGs — the "
+                        "reference's Show_UndistortedImage view "
+                        "(camera_calibration.cpp:707-720); also shown in "
+                        "a window when a GUI is available")
+    _add_device(k)
     return p
 
 
@@ -484,13 +539,16 @@ def probe(source: str) -> dict:
     return out
 
 
-def _require_cuda():
+def _device(args) -> str:
+    """The ``--device`` asked for; ``cuda`` without a card is an error,
+    never a quiet move to the CPU."""
     import torch
 
-    if not torch.cuda.is_available():
+    if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device: the torch package's CLI renders on a GPU "
-            "(library calls take device='cpu' for testing)")
+            "no CUDA device: the torch package's CLI runs on a GPU unless "
+            "asked for the CPU with --device cpu")
+    return args.device
 
 
 def _trace(trace_dir):
@@ -508,17 +566,17 @@ def _render(args):
     import contextlib
 
     options = _render_options(args)  # a malformed --crop stops before the card is asked
-    _require_cuda()
+    device = _device(args)
     with _trace(args.trace) if args.trace else contextlib.nullcontext():
         if args.compare:
             from video_annotator_tpu_torch.pipeline.compare import render_compare
 
             modes = [m.strip() for m in args.compare.split(",") if m.strip()]
-            render_compare(args.source, args.dest, modes, options, device="cuda")
+            render_compare(args.source, args.dest, modes, options, device=device)
         else:
             from video_annotator_tpu_torch.pipeline.render import render
 
-            render(args.source, args.dest, options, device="cuda")
+            render(args.source, args.dest, options, device=device)
     if args.trace:
         print(f"device trace written to {args.trace}")
 
@@ -533,11 +591,11 @@ def _workflow(args):
     elif args.action == "tag":
         workflow.tag(args.code, args.directory, args.sets_json)
     elif args.action == "stabilise":
-        _require_cuda()
-        workflow.stabilise(args.code, args.directory, args.concurrency, device="cuda")
+        workflow.stabilise(args.code, args.directory, args.concurrency,
+                           device=_device(args))
     elif args.action == "split":
         # Each set renders in a child process of this CLI, which checks
-        # for the card itself.
+        # for the card itself (--device, if any, is in --render-args).
         workflow.split(args.code, args.directory, args.concurrency,
                        args.render_args.split() if args.render_args else None)
     else:
@@ -546,12 +604,22 @@ def _workflow(args):
         workflow.encode(args.code, args.directory, args.encoder or default_encoder())
 
 
+def _calibrate(args):
+    from video_annotator_tpu_torch.calibrate import calibrate_cli
+
+    if args.points is None and not args.settings:
+        raise ValueError("calibrate needs a points/video path or --settings")
+    calibrate_cli(args.points, args.model, args.size, args.output,
+                  board=args.board, square_size=args.square_size,
+                  max_views=args.frames, interval_s=args.interval,
+                  pattern=args.pattern, settings=args.settings,
+                  flip_vertical=args.flip_vertical,
+                  show_undistorted_dir=args.show_undistorted,
+                  device=_device(args))
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.command in _NOT_PORTED:
-        print(f"error: {args.command} is not yet ported to the torch package "
-              "(ROADMAP.md)", file=sys.stderr)
-        return 2
     try:
         if args.command == "join":
             from video_annotator_tpu_torch.io.gopro import join
@@ -564,11 +632,13 @@ def main(argv=None) -> int:
 
             args.stabilise = "none"
             options = _render_options(args)
-            _require_cuda()
+            device = _device(args)
             modes = [m.strip() for m in args.compare.split(",") if m.strip()]
-            render_compare(args.source, args.dest, modes, options, device="cuda")
+            render_compare(args.source, args.dest, modes, options, device=device)
         elif args.command == "workflow":
             _workflow(args)
+        elif args.command == "calibrate":
+            _calibrate(args)
         else:
             import json
 

@@ -173,6 +173,38 @@ def write_telemetry_mp4(path: str, config: SyntheticCamera,
     write_gpmf_mp4(path, telemetry_payloads(config, up0), timescale=1000, delta=1000)
 
 
+def render_chessboard(camera: Camera, poses, cols: int = 9, rows: int = 6) -> list:
+    """(H, W) uint8 views of a chessboard with unit squares through
+    ``camera``, one per ``(R, t)`` pose (board to camera): calibration
+    footage with known intrinsics. Inner corners sit at integer board
+    coordinates (0..cols-1, 0..rows-1); the squares extend one beyond on
+    every side, over a white backing (the light border
+    ``findChessboardCorners`` needs), on a grey ground; polygons are
+    filled at 1/16 px with antialiasing, then blurred by a 3x3 Gaussian
+    of sigma 0.8."""
+    import cv2
+
+    def project(pts_board, R, t):
+        p3 = np.concatenate([pts_board, np.zeros((len(pts_board), 1))], 1)
+        uv = camera.project(torch.from_numpy((p3 @ R.T + t).astype(np.float32))).numpy()
+        return np.round(uv * 16).astype(np.int32)  # shift=4 subpixel coordinates
+
+    frames = []
+    for R, t in poses:
+        img = np.full((camera.height, camera.width), 160, np.uint8)
+        backing = np.array([[-2.0, -2.0], [cols + 1.0, -2.0], [cols + 1.0, rows + 1.0],
+                            [-2.0, rows + 1.0]])
+        cv2.fillConvexPoly(img, project(backing, R, t), 255, cv2.LINE_AA, shift=4)
+        for i in range(-1, cols):
+            for j in range(-1, rows):
+                if (i + j) % 2:
+                    quad = np.array([[i, j], [i + 1, j], [i + 1, j + 1], [i, j + 1]],
+                                    np.float64)
+                    cv2.fillConvexPoly(img, project(quad, R, t), 10, cv2.LINE_AA, shift=4)
+        frames.append(cv2.GaussianBlur(img, (3, 3), 0.8))
+    return frames
+
+
 class SyntheticSource:
     """Reader-compatible synthetic stream rendering on ``device``."""
 

@@ -6,9 +6,11 @@ encoding smooths the accumulated ``(dx, dy, angle, log_scale)``
 trajectory with the Savitzky-Golay kernel the rotation family uses and
 warps with the inverse correction.
 
-The analyser carries each frame's staged pyramid (kernel K3) and tracks
-with K2's per-frame form, as ``pipeline/render.py::Tracker`` does; its
-key-frame rule reads the status count on the host once per frame. On a
+The analyser tracks as ``pipeline/render.py::Tracker`` does: on a card it
+carries each frame's staged pyramid (kernel K3) and tracks with K2's
+per-frame form, on the CPU it tracks the float frames with the plain
+``pyramidal_lk``; its key-frame rule reads the status
+count on the host once per frame. On a
 card the warp is kernel K1 over identity pinhole cameras
 (:class:`SimilarityWarper`); on the CPU it is
 :func:`warp_frame_similarity`.
@@ -32,7 +34,7 @@ from video_annotator_tpu_torch.ops.affine import (
     warp_similarity,
 )
 from video_annotator_tpu_torch.ops.corners import detect_corners
-from video_annotator_tpu_torch.ops.lk import DEF_ITERS
+from video_annotator_tpu_torch.ops.lk import DEF_ITERS, pyramidal_lk, resolve_lk
 from video_annotator_tpu_torch.ops.lk_kernel import pyramidal_lk_packed, stage_pyramid
 from video_annotator_tpu_torch.ops.warp_plain import box_downsample
 from video_annotator_tpu_torch.pipeline.profiler import StageProfiler
@@ -58,6 +60,7 @@ def analyse_similarity(source: str, options,
     unchanged), applied once at collect time."""
     prof = profiler or StageProfiler()
     dev = torch.device(device)
+    kernel = resolve_lk(dev) == "kernel"
     reader, meta, first, last = open_trimmed(source, options, dev)
     level = analysis_level(options, meta)
     track_w = meta.width >> level
@@ -71,7 +74,7 @@ def analyse_similarity(source: str, options,
     acc = torch.zeros(4, dtype=torch.float32, device=dev)
     prev_params = torch.zeros(4, dtype=torch.float32, device=dev)
     out = []
-    staged_prev = pts = valid = None
+    gray_prev = staged_prev = pts = valid = None
     age = 0
     idx = reader.start_frame - 1
     pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
@@ -84,15 +87,18 @@ def analyse_similarity(source: str, options,
             if idx >= last:
                 break
             gray = box_downsample(y.to(torch.float32), level)
-            staged = stage_pyramid(gray)
-            if staged_prev is None:
+            staged = stage_pyramid(gray) if kernel else ()
+            if gray_prev is None:
                 with prof.stage("detect"):
                     pts, valid = detect(gray)
             else:
                 with prof.stage("track"):
-                    new_pts, status = pyramidal_lk_packed(
-                        staged_prev, staged, tuple(gray.shape), pts, valid,
-                        DEF_ITERS)
+                    if kernel:
+                        new_pts, status = pyramidal_lk_packed(
+                            staged_prev, staged, tuple(gray.shape), pts, valid,
+                            DEF_ITERS)
+                    else:
+                        new_pts, status = pyramidal_lk(gray_prev, gray, pts, valid)
                     params, inliers = fit_similarity(pts, new_pts, status)
                     prev_params = torch.where(inliers >= min_inliers, params,
                                               prev_params)
@@ -104,7 +110,7 @@ def analyse_similarity(source: str, options,
                         refresh = int(status.sum()) < min_refresh
                     pts, valid = detect(gray) if refresh else (new_pts, status)
                 age = 0 if age >= KEY_FRAME_MAX_AGE else age + 1
-            staged_prev = staged
+            gray_prev, staged_prev = gray, staged
             out.append(acc)
     finally:
         pre.close()

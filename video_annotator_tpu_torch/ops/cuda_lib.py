@@ -163,3 +163,35 @@ def check_operands(*tensors: torch.Tensor) -> None:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+GRAPH_WARMUP = 3  # eager calls on a side stream before a CUDA graph is captured
+
+
+def graphed(fn, *example: torch.Tensor):
+    """``fn`` over tensors shaped as ``example`` (or over none), captured
+    once as a CUDA graph and replayed: for a step of many small kernels
+    whose launches would otherwise bind it. ``fn`` runs
+    :data:`GRAPH_WARMUP` times on a side stream first (on copies of
+    ``example``; a stateful ``fn`` takes those calls as its first steps),
+    then the returned ``replay(*args)`` copies ``args`` into the static
+    inputs, replays, and returns the captured outputs, which the next
+    replay overwrites. ``fn`` must not synchronise with the host."""
+    dev = torch.cuda.current_device()
+    static = [x.clone() for x in example]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(GRAPH_WARMUP):
+            fn(*static)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*static)
+
+    def replay(*args):
+        for s, a in zip(static, args):
+            s.copy_(a)
+        graph.replay()
+        return out
+    return replay

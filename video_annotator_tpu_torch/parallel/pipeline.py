@@ -5,12 +5,13 @@ Port of ``video_annotator_tpu/parallel/pipeline.py`` on
 of frames: streams over ``data``, frames over ``time``; the warped
 output rows are split over ``space``. The step, per rank:
 
-1. tracking: corners on each frame's predecessor, pyramidal LK through
-   kernel K2's pairs form, RANSAC per pair. The predecessor of a block's
-   first frame is the last frame of the left time neighbour (a one-frame
-   halo); the global first frame is tracked against itself. The RANSAC
-   samples of a pair come from a generator seeded by its global (stream,
-   frame) index, so the result does not depend on the mesh;
+1. tracking: corners on each frame's predecessor, pyramidal LK (kernel
+   K2's pairs form on a card, the plain ``pyramidal_lk`` on the CPU, as
+   :func:`track_pairs` resolves it), RANSAC per pair. The predecessor of
+   a block's first frame is the last frame of the left time neighbour (a
+   one-frame halo); the global first frame is tracked against itself. The
+   RANSAC samples of a pair come from a generator seeded by its global
+   (stream, frame) index, so the result does not depend on the mesh;
 2. the distributed prefix product of the deltas over ``time``;
 3. Savitzky-Golay smoothing with ``smooth_radius`` halos;
 4. the warp by the corrections ``R_meas R_smooth^T``: with one rank on
@@ -29,6 +30,7 @@ from video_annotator_tpu_torch import so3
 from video_annotator_tpu_torch.camera import Camera
 from video_annotator_tpu_torch.ops import warp_kernel
 from video_annotator_tpu_torch.ops.corners import detect_corners
+from video_annotator_tpu_torch.ops.lk import pyramidal_lk, resolve_lk
 from video_annotator_tpu_torch.ops.lk_kernel import pyramidal_lk_pairs, stage_pyramid_pairs
 from video_annotator_tpu_torch.ops.ransac import estimate_rotation, sample_pairs
 from video_annotator_tpu_torch.parallel.mesh import axis_size, neighbour_exchange
@@ -66,9 +68,13 @@ def track_pairs(seq: torch.Tensor, in_camera: Camera, max_corners: int):
     next: ``(pts, new_pts, status)`` of (T, N, 2), (T, N, 2), (T, N)."""
     pts, valid = detect_corners(seq[:-1], max_corners=max_corners,
                                 min_distance=MIN_DISTANCE, border=BORDER)
-    staged = stage_pyramid_pairs(seq, LK_LEVELS)
-    new_pts, status = pyramidal_lk_pairs(staged, tuple(seq.shape[-2:]), pts, valid,
-                                         iters=LK_ITERS)
+    if resolve_lk(seq.device) == "kernel":
+        staged = stage_pyramid_pairs(seq, LK_LEVELS)
+        new_pts, status = pyramidal_lk_pairs(staged, tuple(seq.shape[-2:]), pts, valid,
+                                             iters=LK_ITERS)
+    else:
+        new_pts, status = pyramidal_lk(seq[:-1], seq[1:], pts, valid, levels=LK_LEVELS,
+                                       iters=LK_ITERS)
     return pts, new_pts, status
 
 

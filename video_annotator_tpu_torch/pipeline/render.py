@@ -79,7 +79,7 @@ from video_annotator_tpu_torch.io.video import (
     yuv420_to_bgr,
 )
 from video_annotator_tpu_torch.ops.corners import detect_corners
-from video_annotator_tpu_torch.ops.lk import DEF_LEVELS, WIN
+from video_annotator_tpu_torch.ops.lk import DEF_LEVELS, WIN, pyramidal_lk, resolve_lk
 from video_annotator_tpu_torch.ops.lk_kernel import (
     pyramidal_lk_packed,
     pyramidal_lk_pairs,
@@ -825,10 +825,15 @@ def pair_generator(seed: int, frame_index: int) -> torch.Generator:
 class _Tracking:
     """What both analysers share: the tracking-scale input camera, the
     RANSAC threshold, the gates of :func:`tracking_gates` and the seeding
-    border at tracking resolution, and the RANSAC samples."""
+    border at tracking resolution, the RANSAC samples, and the LK
+    (``lk``: ``"kernel"`` for K2 over K3-staged uint8 levels on a CUDA
+    device, ``"plain"`` for
+    :func:`~video_annotator_tpu_torch.ops.lk.pyramidal_lk` on float levels
+    on the CPU, as the JAX package picks its Pallas or XLA LK)."""
 
     def __init__(self, meta: VideoMeta, options: RenderOptions, device):
         self.device = torch.device(device)
+        self.lk = resolve_lk(self.device)
         in_cam_native = _input_camera(meta, options)
         self.level = analysis_level(options, meta)
         self.in_cam = mip_camera(in_cam_native, self.level)
@@ -856,10 +861,11 @@ class _Tracking:
 class PairTracker(_Tracking):
     """Paired analyse of one chunk (``--analysis-mode paired``).
 
-    Detect fresh corners on every frame, LK-track all adjacent pairs in
-    one K2 launch per pyramid level, RANSAC every pair, carry failed pairs
-    (fewer than the inlier gate) over with the last good delta, and chain
-    the deltas into accumulated rotations."""
+    Detect fresh corners on every frame, LK-track all adjacent pairs (in
+    one K2 launch per pyramid level, or the plain LK over the pair axis),
+    RANSAC every pair, carry failed pairs (fewer than the inlier gate)
+    over with the last good delta, and chain the deltas into accumulated
+    rotations."""
 
     def __init__(self, meta: VideoMeta, options: RenderOptions, device):
         super().__init__(meta, options, device)
@@ -880,10 +886,13 @@ class PairTracker(_Tracking):
                                     border=self.det_border)
         if self.detect_level:
             pts = pts * self.det_scale + (self.det_scale - 1.0) * 0.5
-        staged = stage_pyramid_pairs(grays)
-        new_pts, status = pyramidal_lk_pairs(
-            staged, (grays.shape[1], grays.shape[2]), pts, valid,
-            iters=self.iters)
+        if self.lk == "kernel":
+            new_pts, status = pyramidal_lk_pairs(
+                stage_pyramid_pairs(grays), (grays.shape[1], grays.shape[2]), pts, valid,
+                iters=self.iters)
+        else:
+            new_pts, status = pyramidal_lk(grays[:-1], grays[1:], pts, valid,
+                                           iters=self.iters)
         est = estimate_rotation(
             self.in_cam.unproject_unit(pts), self.in_cam.unproject_unit(new_pts),
             status, threshold_rad=self.threshold,
@@ -911,10 +920,11 @@ class Tracker(_Tracking):
     from frame to frame and are re-detected on key frames, as in the
     reference's per-frame loop.
 
-    Each frame is box-downsampled to the tracking scale and its pyramid
-    staged once (K3); the pyramid is carried as the next step's previous
-    frame. Per step: K2's per-frame form over the two staged pyramids,
-    RANSAC on the unit rays, the inlier-gated fallback to the previous
+    Each frame is box-downsampled to the tracking scale and, for K2, its
+    pyramid staged once (K3); the frame and its pyramid are carried as the
+    next step's previous frame. Per step: K2's per-frame form over the two
+    staged pyramids (or the plain LK over the two frames), RANSAC on the
+    unit rays, the inlier-gated fallback to the previous
     delta, and ``R_t = orthonormalize(delta . R_{t-1})``.
 
     The key-frame rule of the JAX package's ``lax.cond`` (re-detect when
@@ -950,10 +960,14 @@ class Tracker(_Tracking):
 
     def detect(self, frame: torch.Tensor):
         """(H, W) frame -> ``(pts, valid, state)``: corners at tracking
-        resolution and the carry ``(gray, staged pyramid)``."""
+        resolution and the carry ``(gray, staged pyramid)`` (an empty
+        pyramid for the plain LK, which takes the frames)."""
         gray = self._gray(frame)
         pts, valid = self._detect(gray)
-        return pts, valid, (gray, stage_pyramid(gray))
+        return pts, valid, (gray, self._stage(gray))
+
+    def _stage(self, gray: torch.Tensor):
+        return stage_pyramid(gray) if self.lk == "kernel" else ()
 
     def step(self, state, frame: torch.Tensor, pts: torch.Tensor,
              valid: torch.Tensor, prev_delta: torch.Tensor, r_acc: torch.Tensor,
@@ -966,10 +980,13 @@ class Tracker(_Tracking):
         span = self.profiler.stage
         with span("stage"):
             gray = self._gray(frame)
-            staged = stage_pyramid(gray)
+            staged = self._stage(gray)
         with span("lk"):
-            new_pts, status = pyramidal_lk_packed(
-                state[1], staged, tuple(gray.shape), pts, valid, self.iters)
+            if self.lk == "kernel":
+                new_pts, status = pyramidal_lk_packed(
+                    state[1], staged, tuple(gray.shape), pts, valid, self.iters)
+            else:
+                new_pts, status = pyramidal_lk(state[0], gray, pts, valid, iters=self.iters)
         with span("ransac"):
             est = estimate_rotation(
                 self.in_cam.unproject_unit(pts)[None],

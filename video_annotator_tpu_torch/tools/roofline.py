@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -57,6 +56,7 @@ from video_annotator_tpu_torch.ops.roofline_kernel import (
     OUTER,
     SHAPE,
 )
+from video_annotator_tpu_torch.tools.provenance import card_label, git_sha
 
 TILE = SHAPE[0] * SHAPE[1]
 SMS = 132  # streaming multiprocessors of an H100 SXM
@@ -327,30 +327,6 @@ def summary(result: dict) -> list:
     lines.append("K1 time in issue slots per pixel at the fused chain's rate: "
                  + ", ".join(f"{b} {v:.1f}" for b, v in floor["issue_slots_per_pixel"].items()))
     return lines
-
-
-def card_label() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def git_sha() -> str:
-    """The checkout's short SHA, ``-dirty`` with uncommitted changes;
-    ``unknown`` outside a git checkout."""
-    here = Path(__file__).resolve().parent
-    try:
-        out = subprocess.run(["git", "rev-parse", "--short", "HEAD"], cwd=here,
-                             capture_output=True, text=True, timeout=10)
-        sha = out.stdout.strip()
-        if out.returncode != 0 or not sha:
-            return "unknown"
-        dirty = subprocess.run(["git", "status", "--porcelain"], cwd=here,
-                               capture_output=True, text=True, timeout=10)
-        return sha + ("-dirty" if dirty.returncode == 0 and dirty.stdout.strip() else "")
-    except (OSError, subprocess.SubprocessError):
-        return "unknown"
 
 
 def stamp(record: dict) -> dict:
