@@ -176,13 +176,39 @@ the last line is printed):
       its 5 PNGs equal to the child's and within one count of the plain
       warp of the same frames;
    b. ``tools/quality.py --n 48`` at its 640x480: 18 rows written, the
-      nine rows that track at scale 1 under 0.1 deg of trajectory RMS,
-      every stabilised row with a positive reduction, except the scale 0.5
-      and 0.25 rows, printed, not gated (K2 stages one level or none at
-      320x240 and 160x120, as the JAX package's accelerator path does);
+      nine rows that track at scale 1 and the three at scale 0.5 under
+      0.1 deg of trajectory RMS (the scale-0.25 row printed, not gated),
+      every stabilised row with a positive reduction; then the tracked and
+      paired analyses of the tool's whole 150-frame clip (frames 97 to 98 move
+      13.4 px), each under 0.1 deg, K2 and the plain LK level both
+      launched (at 640x480 K2 stages two of the three levels); outside
+      the counts, the same with K2 alone (the levels it cannot stage kept
+      at the coarse guess) for its RMS, and the analyse fps of both loops
+      on the clip's first 64 frames resident on the card;
    c. ``tools/fidelity.py --dispatches 4``: PSNR >= 45 dB in luma, U and V
       and in every family, p50 and p99 ms per frame of the 32-frame
-      batch.
+      batch;
+   d. ``tools/run.py`` over its eight configs in child processes at their
+      own geometries, ``--trials 2 --sleep 0``, ``VAT_BENCH_FRAMES=64``,
+      ``VAT_E2E_FRAMES=96``, ``VAT_E2E_TRIALS=2``, the e2e config over the
+      y4m (the encoded MP4 where the native libraries built): each
+      config's JSON, none failed, each config's kernels launched (the
+      children's counts, added to the ``kernels`` line; e2e at 960x720
+      runs the plain level);
+   e. ``tools/soak.py`` at 1920x1440 x 180 frames (y4m, or mp4 where the
+      native libraries built), ``--no-attribution``, the card's ceiling of
+      8192 MB: segment fps, decay-free, peak and plateau RSS (its render
+      children's launches are not counted; at this length the late slope
+      measures the children's start, not a leak, and is left in the JSON;
+      the phase's time is its four children's start, whatever the length);
+   f. ``tools/host_feed.py`` where the native libraries built, else a line
+      saying that it did not run and why;
+   g. ``tools/bracket.py --pairs 2`` in this process: row 6's slope and
+      the multistream fps, alternated.
+   Each prints its JSON and its seconds on lines of its own. Every CLI
+   render of phase 3 tracks at 1920x1440 or more and must call the plain
+   LK level zero times; the script prints how often the phases above
+   called it.
 6. A JSON line of per-kernel results, then the device line.
 """
 
@@ -190,6 +216,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -236,7 +263,8 @@ from video_annotator_tpu_torch.smoothing.rolling import (
     rs_row_rotations_gyro,
     scan_fractions,
 )
-from video_annotator_tpu_torch.tools import fidelity, quality, roofline
+from video_annotator_tpu_torch.tools import bracket, fidelity, quality, roofline
+from video_annotator_tpu_torch.tools import run as bench_run
 
 W, H = 3840, 2880
 FRAMES = 64
@@ -363,16 +391,43 @@ BOARD_TOL = (6.0, 6.0, 8.0, 8.0)  # px at 640x480
 MAX_BOARD_RMS = 1.0  # px, the tests' bound, not scaled
 UNDISTORTED_VIEWS = 5  # show_undistorted's default max_frames
 # The quality phase: the tool's 640x480 clip, 48 frames; the rows that
-# track at scale 1, held to the accuracy guard and to a positive reduction.
-# The rows at --analysis-scale 0.5 and 0.25 track at 320x240 and 160x120,
-# where K2 stages one pyramid level or none (the JAX package's accelerator
-# path does the same): printed, not gated.
+# track at scale 1 and at --analysis-scale 0.5 (320x240: K2 stages one of
+# its three levels, the plain level runs the other two), held to the
+# accuracy guard, and every row to a positive reduction. The row at 0.25
+# (160x120) has its trajectory RMS printed, not gated: the JAX package's
+# XLA LK reads 0.2407 deg there too. Then the tracked and paired analyses
+# of the tool's whole 150-frame clip (frames 97 to 98 move 13.4 px), each
+# held to the guard; at 640x480 K2 stages two of the three levels the
+# plain LK tracks, and the third runs the plain level.
 QUALITY_FRAMES = 48
+QUALITY_CLIP = "synthetic://shaky?w=640&h=480&n=150&seed=11&shake=0.008&pan=0.002"
+CLIP_FPS_FRAMES = 64  # the clip's first frames, resident, for the analyse fps
+CLIP_FPS_ROUNDS = 2  # rounds of (every level, K2 alone) after a warm-up of each
+# The tools' phases: tools/run.py's eight configs in child processes, frames
+# and trials cut through its own switches; the soak at 1920x1440.
+RUN_ENV = {"VAT_BENCH_FRAMES": "64", "VAT_E2E_FRAMES": "96", "VAT_E2E_TRIALS": "2"}
+RUN_ARGS = ["--trials", "2", "--sleep", "0"]
+RUN_KERNELS = {"1080p_sparse_flow": ("stage", "lk_level_frame"),
+               "1080p_full_pipeline": ("stage", "lk_level_frame", "warp_luma", "warp_chroma"),
+               "4k_gyro_fused": ("warp_luma", "warp_chroma"),
+               "4k_visual_full_pipeline": ("stage", "lk_level", "warp_luma", "warp_chroma"),
+               "4k_visual_full_pipeline_detect0": ("stage", "lk_level", "warp_luma",
+                                                   "warp_chroma"),
+               "e2e_decode_overlap_720p": ("stage", "lk_level", "warp_luma", "warp_chroma",
+                                           lk_kernel.PLAIN_LEVEL.name),
+               "8x4k60_multistream": ("warp_luma", "warp_chroma")}
+# A render child on the card holds about 5.6 GB of RSS from its start (the
+# CUDA libraries; PERF.md section 6), over the JAX tool's 4096 MB
+# default sized for its TPU children: the ceiling here is the card's.
+SOAK_ARGS = ["--frames", "180", "--width", "1920", "--height", "1440", "--no-attribution",
+             "--max-rss-mb", "8192"]
+BRACKET_PAIRS = 2
 QUALITY_GATED = ("rotation_smooth_savgol", "rotation_smooth_paired",
                  "rotation_smooth_paired_detect0", "rotation_smooth_kalman",
                  "rotation_smooth_kalman_streaming", "rotation_fixed",
                  "rotation_smooth_bicubic", "rotation_smooth_lanczos",
-                 "rotation_smooth_prefilter")
+                 "rotation_smooth_prefilter", "rotation_smooth_scale05",
+                 "rotation_smooth_paired_scale05", "rotation_smooth_paired_scale05_detect0")
 QUALITY_KERNELS = ("warp_luma", "warp_chroma", "stage", "lk_level", "lk_level_frame",
                    "warp_luma_bicubic", "warp_luma_lanczos", "warp_luma_rs", "warp_chroma_rs")
 FIDELITY_DISPATCHES = 4
@@ -420,13 +475,16 @@ def check(cond: bool, what: str) -> None:
 
 
 def zero_launches():
-    for k in cuda_lib.KERNELS.values():
+    for k in (*cuda_lib.KERNELS.values(), lk_kernel.PLAIN_LEVEL):
         k.launches = 0
 
 
 def launch_counts() -> dict:
-    """Every kernel object's launches since :func:`zero_launches`."""
-    return {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+    """Every kernel object's launches since :func:`zero_launches`, and the
+    plain LK level's calls (``lk_plain_level``: not a kernel, so not in
+    the ``kernels`` line)."""
+    return {n: k.launches for n, k in
+            (*cuda_lib.KERNELS.items(), (lk_kernel.PLAIN_LEVEL.name, lk_kernel.PLAIN_LEVEL))}
 
 
 def check_launched(name, needs) -> dict:
@@ -1039,6 +1097,8 @@ def drive(name, argv, label, needs, frames=FRAMES, grid=False):
         f"launches {launches}")
     for kname in needs:
         check(launches.get(kname, 0) > 0, f"[{name}] kernel {kname} was not launched")
+    # Every render here tracks at 1920x1440 or more, where K2 stages every level.
+    check(launches[lk_kernel.PLAIN_LEVEL.name] == 0, f"[{name}] ran the plain LK level")
     secs, calls = seen["profiler"].all_totals()
     steady, steady_calls = seen["profiler"].totals()
     log(f"[{name}] per-stage host wall time ({label}), warm-up included; in "
@@ -2198,8 +2258,8 @@ def phase_calibrate(dev, label):
 
 def phase_quality(dev, label):
     """``tools/quality.py --n 48`` at its 640x480: the 18 rows written, the
-    scale-1 tracking rows within the accuracy guard, every stabilised row
-    reducing shake; the launch counts at 0 just before."""
+    tracking rows at scales 1 and 0.5 within the accuracy guard, every
+    stabilised row reducing shake; the launch counts at 0 just before."""
     path = os.path.join(tempfile.mkdtemp(prefix="vat_torch_quality_"), "quality.json")
     zero_launches()
     t0 = time.perf_counter()
@@ -2214,19 +2274,16 @@ def phase_quality(dev, label):
     shutil.rmtree(os.path.dirname(path))
     log(f"[quality] {label}: {len(rows)} rows at 640x480 x {QUALITY_FRAMES} frames in "
         f"{wall:.2f} s")
-    def scaled(name):
-        return "_scale0" in name
-
     for name, r in rows.items():
         log(f"[quality] {name}: shake {r['value']} px ({r['hf_shake_deg_rms']} deg), "
             f"reduction {r.get('reduction_db')} dB, trajectory RMS {r.get('traj_rms_deg')} deg"
-            + (" (not gated)" if scaled(name) else ""))
+            + (" (not gated)" if "_scale025" in name else ""))
     check(len(rows) == 18 and set(QUALITY_GATED) <= set(rows), "[quality] rows are missing")
     for name in QUALITY_GATED:
         check(rows[name]["traj_rms_deg"] < MAX_RMS_DEG,
               f"[quality] {name}: trajectory RMS {rows[name]['traj_rms_deg']} deg")
     for name, r in rows.items():
-        if "reduction_db" in r and not scaled(name):
+        if "reduction_db" in r:
             check(r["reduction_db"] > 0, f"[quality] {name} does not reduce the shake")
     return launches
 
@@ -2259,6 +2316,195 @@ def phase_fidelity(dev, label):
     check(min(planes) >= fidelity.PSNR_GATE_DB, "[fidelity] a plane is under 45 dB")
     check(all(fam["psnr_luma_db"] >= fidelity.PSNR_GATE_DB for fam in r["families"].values()),
           "[fidelity] a family is under 45 dB")
+    return launches
+
+
+@contextlib.contextmanager
+def k2_only_levels():
+    """K2 alone, as the analysers tracked before the plain level: their
+    staging without ``plain_levels``, so that the levels K2 cannot stage
+    are None and the loops keep the coarse guess there (the JAX package's
+    Pallas loops). Only to time the analyses against it."""
+    saved = {name: getattr(trender, name) for name in ("stage_pyramid_pairs", "stage_pyramid")}
+    for name, stage in saved.items():
+        setattr(trender, name, lambda *args, stage=stage, plain_levels=False: stage(*args))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(trender, name, fn)
+
+
+def clip_rms_deg(dev, mode: str, tmp: str) -> float:
+    """Trajectory RMS (deg) of ``trender.analyse`` of the quality clip."""
+    dest = os.path.join(tmp, f"{mode}.y4m")
+    opts = trender.RenderOptions(stabilise="smooth", analysis_mode=mode,
+                                 preset=CameraPreset.GOPRO_H4B_WIDE43_MEASURED)
+    trender.analyse(QUALITY_CLIP, opts, device=dev).save(trajectory_path(dest))
+    return quality.traj_rms_deg(dest, QUALITY_CLIP)
+
+
+def clip_analyse_fps(dev, mode: str, lumas) -> tuple:
+    """Analyse fps of the lumas, resident on the card, through the analyser
+    of ``mode`` (decode excluded), synchronised: ``(every level, K2
+    alone)``, each the best of ``CLIP_FPS_ROUNDS`` rounds that alternate
+    the two, after a warm-up of each."""
+    meta = trender.VideoMeta(640, 480, 30, len(lumas))
+    opts = trender.RenderOptions(stabilise="smooth", analysis_mode=mode,
+                                 preset=CameraPreset.GOPRO_H4B_WIDE43_MEASURED)
+    stacks = bench_run.paired_stacks(lumas, opts.analysis_chunk)
+
+    def seconds():
+        t0 = time.perf_counter()
+        if mode == "tracked":
+            bench_run.analyse_tracked(trender.Tracker(meta, opts, dev), lumas)
+        else:
+            bench_run.analyse_paired(trender.PairTracker(meta, opts, dev), stacks, len(lumas))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def k2_seconds():
+        with k2_only_levels():
+            return seconds()
+
+    seconds(), k2_seconds()
+    best = [min(ts) for ts in zip(*[(seconds(), k2_seconds()) for _ in range(CLIP_FPS_ROUNDS)])]
+    return tuple(len(lumas) / t for t in best)
+
+
+def phase_quality_clip(dev, label):
+    """The tracked and paired analyses of the quality tool's 150-frame clip
+    at 640x480 through ``trender.analyse``, each under the 0.1 deg guard,
+    K2 and the plain level both launched (the launch counts at 0 just
+    before, read just after); then, outside the counts, the same analyses
+    with K2 alone (``k2_only_levels``) for their RMS, and the analyse fps
+    of both loops on the clip's first lumas resident on the card."""
+    tmp = tempfile.mkdtemp(prefix="vat_torch_clip_")
+    t0 = time.perf_counter()
+    zero_launches()
+    rms = {mode: clip_rms_deg(dev, mode, tmp) for mode in ("tracked", "paired")}
+    torch.cuda.synchronize()
+    launches = check_launched("quality clip", ("stage", "lk_level", "lk_level_frame",
+                                               lk_kernel.PLAIN_LEVEL.name))
+    with k2_only_levels():
+        rms_k2 = {mode: clip_rms_deg(dev, mode, tmp) for mode in ("tracked", "paired")}
+    source = SyntheticSource.from_uri(QUALITY_CLIP, device=dev)
+    lumas = [torch.from_numpy(y).to(dev) for y, _, _ in itertools.islice(source, CLIP_FPS_FRAMES)]
+    fps = {mode: clip_analyse_fps(dev, mode, lumas) for mode in ("tracked", "paired")}
+    shutil.rmtree(tmp)
+    for mode in ("tracked", "paired"):
+        log(f"[quality clip] {label}: {mode} analyse of 640x480 x 150 frames: trajectory RMS "
+            f"{rms[mode]:.4f} deg (K2 alone, the levels it cannot stage kept at the coarse "
+            f"guess: {rms_k2[mode]:.4f}); analyse of the first {CLIP_FPS_FRAMES} frames, "
+            f"resident: {fps[mode][0]:.2f} fps (K2 alone: {fps[mode][1]:.2f}, ratio "
+            f"{fps[mode][0] / fps[mode][1]:.3f})")
+    log(f"[quality clip] {time.perf_counter() - t0:.1f} s")
+    for mode, value in rms.items():
+        check(value < MAX_RMS_DEG, f"[quality clip] {mode}: trajectory RMS {value} deg")
+    return launches
+
+
+def tool_child(name: str, argv: list, env=None) -> float:
+    """``python -m video_annotator_tpu_torch.tools.<name> argv`` in a child
+    process from the checkout; its seconds. A non-zero exit fails the run."""
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", f"video_annotator_tpu_torch.tools.{name}",
+                           *argv], capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          env=dict(os.environ, **(env or {})))
+    seconds = time.perf_counter() - t0
+    check(done.returncode == 0, f"[{name}] exited {done.returncode}: {done.stderr[-3000:]}")
+    return seconds
+
+
+def phase_run_tool(dev, label, native_ok):
+    """``tools/run.py`` over its eight configs, each in a child process at
+    its own geometry (4K at full width), trials cut to 2 with no sleep,
+    frames cut through ``RUN_ENV``; the e2e config over the encoded MP4
+    where the native libraries built, else over the y4m. Each config's
+    JSON on a line of its own, every one without an error, each of its
+    kernels launched (the children's own counts, summed into the
+    ``kernels`` line)."""
+    path = os.path.join(tempfile.mkdtemp(prefix="vat_torch_run_"), "run.json")
+    source = "mp4" if native_ok else "y4m"
+    seconds = tool_child("run", [*RUN_ARGS, "--source", source, "--out", path], RUN_ENV)
+    with open(path) as f:
+        rows = json.load(f)
+    shutil.rmtree(os.path.dirname(path))
+    launches = {}
+    for row in rows:
+        log(f"[run] {json.dumps(row)}")
+    check([r["config"] for r in rows] == list(bench_run.CONFIGS), "[run] configs are missing")
+    for row in rows:
+        check("error" not in row and row["value"] > 0, f"[run] {row['config']} failed")
+        for kname in RUN_KERNELS.get(row["config"], ()):
+            check(row["launches"].get(kname, 0) > 0,
+                  f"[run] {row['config']} did not launch {kname}")
+        for kname, count in row["launches"].items():
+            launches[kname] = launches.get(kname, 0) + count
+    log(f"[run] {label}: eight configs ({source} source, {RUN_ENV}) in {seconds:.1f} s; "
+        f"launches {launches}")
+    return launches
+
+
+def phase_soak(dev, label, native_ok):
+    """``tools/soak.py`` at 1920x1440 x 180 frames on the card (its render
+    children's launches are their own, not counted here): the source mp4
+    where the native libraries built, else y4m; segment fps, decay and
+    RSS on a line of their own."""
+    path = os.path.join(tempfile.mkdtemp(prefix="vat_torch_soak_"), "soak.json")
+    source = "mp4" if native_ok else "y4m"
+    seconds = tool_child("soak", [*SOAK_ARGS, "--source", source, "--out", path])
+    with open(path) as f:
+        r = json.load(f)
+    shutil.rmtree(os.path.dirname(path))
+    log(f"[soak] {json.dumps(r)}")
+    log(f"[soak] {label}: {r['frames']} frames of {r['width']}x{r['height']} ({source}) in "
+        f"{seconds:.1f} s: segments {r['segment_fps']} fps, decay-free {r['decay_free']}, "
+        f"peak RSS {r['peak_rss_mb']} MB, plateau {r['steady_rss_mb']} MB")
+    check(r["decay_free"] and r["rss_ok"] and min(r["segment_fps"]) > 0, "[soak] failed")
+    return {}
+
+
+def phase_host_feed(label, native_ok, why):
+    """``tools/host_feed.py`` where the native libraries built (it decodes
+    through them; no kernel); otherwise a line saying it did not run."""
+    if not native_ok:
+        log(f"[host_feed] did not run: the native libraries are {why}")
+        return {}
+    path = os.path.join(tempfile.mkdtemp(prefix="vat_torch_feed_"), "host_feed.json")
+    seconds = tool_child("host_feed", ["--out", path])
+    with open(path) as f:
+        rows = json.load(f)
+    shutil.rmtree(os.path.dirname(path))
+    for row in rows:
+        log(f"[host_feed] {json.dumps(row)}")
+    log(f"[host_feed] {label}: {seconds:.1f} s")
+    check(len(rows) == 4 and all(r.get("value", 1) > 0 for r in rows), "[host_feed] failed")
+    return {}
+
+
+def phase_bracket(dev, label):
+    """``tools/bracket.py --pairs 2`` in this process, the launch counts at
+    0 just before and read just after: row 6's slope and the multistream
+    fps, alternated."""
+    path = os.path.join(tempfile.mkdtemp(prefix="vat_torch_bracket_"), "bracket.json")
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        rc = bracket.main(["--pairs", str(BRACKET_PAIRS), "--out", path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = check_launched("bracket", ("warp_frames_f32", "warp_luma", "warp_chroma"))
+    check(rc == 0, f"[bracket] returned {rc}")
+    with open(path) as f:
+        r = json.load(f)
+    shutil.rmtree(os.path.dirname(path))
+    log(f"[bracket] {json.dumps(r)}")
+    log(f"[bracket] {label}: {len(r['pairs'])} pairs in {seconds:.1f} s; best multistream "
+        f"{r['best_multistream_fps']} fps")
+    check(len(r["pairs"]) == BRACKET_PAIRS and r["best_multistream_fps"] > 0,
+          "[bracket] failed")
     return launches
 
 
@@ -2831,9 +3077,23 @@ def main(argv=None) -> int:
     phase_kalman_window(dev, label)
     phase_2d_parts(dev, label)
     phase_telemetry_parts(dev, label)
-    for phase in (phase_calibrate, phase_quality, phase_fidelity):
-        for name, count in phase(dev, label).items():
+    tool_phases = (
+        ("calibrate", lambda: phase_calibrate(dev, label)),
+        ("quality", lambda: phase_quality(dev, label)),
+        ("quality clip", lambda: phase_quality_clip(dev, label)),
+        ("fidelity", lambda: phase_fidelity(dev, label)),
+        ("run", lambda: phase_run_tool(dev, label, native_ok)),
+        ("soak", lambda: phase_soak(dev, label, native_ok)),
+        ("host_feed", lambda: phase_host_feed(label, native_ok, native_why)),
+        ("bracket", lambda: phase_bracket(dev, label)),
+    )
+    for phase_name, phase in tool_phases:
+        t_phase = time.perf_counter()
+        for name, count in phase().items():
             launches[name] = launches.get(name, 0) + count
+        log(f"[phase {phase_name}] {time.perf_counter() - t_phase:.1f} s")
+    log(f"[plain level] lk_plain_level called {launches.get(lk_kernel.PLAIN_LEVEL.name, 0)} "
+        f"times over the phases above (the plain LK level, not a kernel)")
     log(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, k in cuda_lib.KERNELS.items():

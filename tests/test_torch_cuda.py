@@ -927,6 +927,25 @@ def lk_texture(seed, w, h):
     return img.to(torch.float32).contiguous()
 
 
+def test_plain_level_replay_is_the_eager_level(cuda):
+    """``lk_kernel.plain_level`` replays ``_lk_level`` as a CUDA graph on a
+    card: the eager call's values bit for bit, call after call, for the
+    pairs form's leading axis too."""
+    from video_annotator_tpu_torch.ops.corners import detect_corners
+    from video_annotator_tpu_torch.ops.lk import _lk_level
+
+    for lead in ((), (3,)):
+        frames = [lk_texture(s, 160, 120).to(cuda) for s in range(4)]
+        pts, _ = detect_corners(frames[0].cpu(), max_corners=64, min_distance=8, border=12)
+        pts = pts.to(cuda).expand(*lead, *pts.shape).contiguous()
+        for a, b in zip(frames[:-1], frames[1:]):
+            a, b = (x.expand(*lead, *x.shape).contiguous() for x in (a, b))
+            guess = torch.full_like(pts, 0.75)
+            want = _lk_level(a, b, pts, guess, 8)
+            got = lk_kernel.plain_level(a, b, pts, guess, 8)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_plain_lk_on_the_card_matches_the_cpu(cuda):
     """The plain ``pyramidal_lk`` (the quality tool's tracker on every
     device) on CUDA tensors against the same call on the CPU."""
@@ -960,30 +979,43 @@ def test_quality_tracker_graph_replays_the_eager_calls(cuda):
             assert torch.equal(g, w)
 
 
-def test_card_tracker_loses_the_quality_clips_large_step(cuda, monkeypatch, tmp_path):
-    """The open fault of ROADMAP.md section 3, item 1, pinned. Over the
-    quality tool's default clip (640x480, 150 frames; frames 97 to 98
-    move 13.4 px) the tracked analyser on K2, which stages two of the
-    three pyramid levels there, reads over the tool's 0.1 deg guard; the
-    same analyser on the same card with the plain LK, which tracks all
-    three, reads under it. A repair of K2's levels fails the first
-    assertion: the test is then to hold K2 under the guard."""
+@pytest.mark.parametrize("mode", ["tracked", "paired"])
+def test_card_tracker_keeps_the_quality_clips_large_step(cuda, tmp_path, mode):
+    """ROADMAP.md section 3's closed fault 1. Over the quality tool's
+    default clip (640x480, 150 frames; frames 97 to 98 move 13.4 px) the
+    card's analysers track the three levels the plain LK tracks (K2 on the
+    two it stages, the plain level on the 160x120 one) and read under the
+    tool's 0.1 deg guard."""
     from video_annotator_tpu_torch.pipeline.trajectory import trajectory_path
     from video_annotator_tpu_torch.tools import quality
 
     src = "synthetic://shaky?w=640&h=480&n=150&seed=11&shake=0.008&pan=0.002"
-    opts = trender.RenderOptions(stabilise="smooth", analysis_mode="tracked",
+    opts = trender.RenderOptions(stabilise="smooth", analysis_mode=mode,
                                  preset=CameraPreset.GOPRO_H4B_WIDE43_MEASURED)
+    dest = str(tmp_path / f"{mode}.y4m")
+    before = (lk_kernel.PLAIN_LEVEL.launches, lk_kernel.LK_LEVEL.launches,
+              lk_kernel.LK_LEVEL_FRAME.launches)
+    trender.analyse(src, opts, device=cuda).save(trajectory_path(dest))
+    assert lk_kernel.PLAIN_LEVEL.launches > before[0]
+    assert (lk_kernel.LK_LEVEL.launches if mode == "paired"
+            else lk_kernel.LK_LEVEL_FRAME.launches) > before[1 if mode == "paired" else 2]
+    rms = quality.traj_rms_deg(dest, src)
+    assert rms < 0.1, rms
 
-    def rms_deg(name):
-        dest = str(tmp_path / f"{name}.y4m")
-        trender.analyse(src, opts, device=cuda).save(trajectory_path(dest))
-        return quality.traj_rms_deg(dest, src)
 
-    k2 = rms_deg("k2")
-    monkeypatch.setattr(trender, "resolve_lk", lambda device: "plain")
-    plain = rms_deg("plain")
-    assert k2 > 0.1 > plain, (k2, plain)
+@pytest.mark.parametrize("mode", ["tracked", "paired"])
+def test_card_4k_analyse_runs_no_plain_level(cuda, mode):
+    """The stock 4K analyse tracks at 1920x1440, where K2 stages all three
+    levels: K2 launches, the plain level does not."""
+    src = "synthetic://shaky?w=3840&h=2880&n=6"
+    opts = trender.RenderOptions(stabilise="smooth", analysis_mode=mode,
+                                 preset=CameraPreset.GOPRO_H4B_WIDE43_MEASURED)
+    plain, pairs, frame = (lk_kernel.PLAIN_LEVEL.launches, lk_kernel.LK_LEVEL.launches,
+                           lk_kernel.LK_LEVEL_FRAME.launches)
+    trender.analyse(src, opts, device=cuda)
+    assert lk_kernel.PLAIN_LEVEL.launches == plain
+    assert (lk_kernel.LK_LEVEL.launches - pairs if mode == "paired"
+            else lk_kernel.LK_LEVEL_FRAME.launches - frame) >= 3
 
 
 def test_calibrate_on_the_card_matches_the_cpu(cuda):

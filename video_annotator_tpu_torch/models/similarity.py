@@ -7,10 +7,10 @@ trajectory with the Savitzky-Golay kernel the rotation family uses and
 warps with the inverse correction.
 
 The analyser tracks as ``pipeline/render.py::Tracker`` does: on a card it
-carries each frame's staged pyramid (kernel K3) and tracks with K2's
-per-frame form, on the CPU it tracks the float frames with the plain
-``pyramidal_lk``; its key-frame rule reads the status
-count on the host once per frame. On a
+carries each frame's pyramid (kernel K3 stages the levels K2 can track)
+and tracks with K2's per-frame form and the plain level on the others,
+on the CPU it tracks the float frames with the plain ``pyramidal_lk``;
+its key-frame rule reads the status count on the host once per frame. On a
 card the warp is kernel K1 over identity pinhole cameras
 (:class:`SimilarityWarper`); on the CPU it is
 :func:`warp_frame_similarity`.
@@ -87,7 +87,7 @@ def analyse_similarity(source: str, options,
             if idx >= last:
                 break
             gray = box_downsample(y.to(torch.float32), level)
-            staged = stage_pyramid(gray) if kernel else ()
+            staged = stage_pyramid(gray, plain_levels=True) if kernel else ()
             if gray_prev is None:
                 with prof.stage("detect"):
                     pts, valid = detect(gray)

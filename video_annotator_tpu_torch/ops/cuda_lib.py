@@ -176,7 +176,8 @@ def graphed(fn, *example: torch.Tensor):
     ``example``; a stateful ``fn`` takes those calls as its first steps),
     then the returned ``replay(*args)`` copies ``args`` into the static
     inputs, replays, and returns the captured outputs, which the next
-    replay overwrites. ``fn`` must not synchronise with the host."""
+    replay overwrites. ``fn`` must not synchronise with the host; other
+    threads may use the device during the capture (a prefetcher's copies)."""
     dev = torch.cuda.current_device()
     static = [x.clone() for x in example]
     side = torch.cuda.Stream(dev)
@@ -186,7 +187,7 @@ def graphed(fn, *example: torch.Tensor):
             fn(*static)
     torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         out = fn(*static)
 
     def replay(*args):

@@ -5,8 +5,9 @@ level count, the conditioning threshold, the ``pyrDown``-style 5-tap
 blur + 2x decimation as two banded matrix products, and
 :func:`pyramidal_lk`, the tracker on float frames of any size, batched
 over points (and over a leading pair axis) with gathers. Kernel K2
-(``ops/lk_kernel.py``) is the card's tracker of the analysers; the
-choice between the two is :func:`resolve_lk`.
+(``ops/lk_kernel.py``) is the card's tracker of the analysers, with
+:func:`_lk_level` on the levels too small for its window; the choice
+between the two is :func:`resolve_lk`.
 
 The products run in full float32 (TF32 off): the pyramid of a
 box-downsampled uint8 frame is then exact at the first level, so the
@@ -71,10 +72,13 @@ def build_pyramid(img: torch.Tensor, levels: int = DEF_LEVELS):
 
 
 def resolve_lk(device) -> str:
-    """The analysers' LK on ``device``: ``"kernel"`` (K2, uint8-staged
-    levels of at least 256 x 112 px) on a CUDA device, ``"plain"``
-    (:func:`pyramidal_lk` on float levels) elsewhere, the JAX package's
-    rule for its Pallas and XLA trackers."""
+    """The analysers' LK on ``device``: ``"kernel"`` on a CUDA device,
+    ``"plain"`` (:func:`pyramidal_lk` on float levels) elsewhere, the JAX
+    package's rule for its Pallas and XLA trackers. Both track the levels
+    of :func:`tracked_levels`: ``"kernel"`` runs K2 on the uint8-staged
+    levels of at least 256 x 112 px and :func:`_lk_level` on the others
+    (``ops/lk_kernel.py``, staged with ``plain_levels``), where the JAX
+    package's Pallas tracker keeps the coarse guess."""
     return "kernel" if torch.device(device).type == "cuda" else "plain"
 
 

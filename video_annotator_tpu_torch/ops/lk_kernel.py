@@ -11,6 +11,16 @@ of ``_make_lk_kernel`` (:73-263) in ``csrc/lk.cu``:
   ``lk_pack_pyramid`` (:381), ``_lk_level_pallas`` (:309) and
   ``pyramidal_lk_pallas_packed`` (:419).
 
+The TPU kernel's window stages no level under 256 columns or 112 rows
+(:func:`_stageable`); the JAX package's Pallas loops keep the coarse guess
+there, and so do :func:`pyramidal_lk_pairs` and :func:`pyramidal_lk_packed`
+over the default staging, which gives ``None`` for such a level. The
+analysers stage with ``plain_levels=True`` instead: every level cv2's rule
+keeps (``ops/lk.py::tracked_levels``, the JAX package's XLA LK), staged
+for K2 where it can be and kept as its float level where it cannot, which
+the same loops track with the plain level (``ops/lk.py::_lk_level``),
+counted in :data:`PLAIN_LEVEL`.
+
 Levels are staged by K3 into (T, H', W') uint8 stacks (rounded half to
 even, padded to 32 rows / 128 columns, 32 slack rows of the last 4-row
 group) -- the bytes the TPU kernel read from its packed words. The
@@ -37,7 +47,9 @@ from video_annotator_tpu_torch.ops.lk import (
     DEF_LEVELS,
     MIN_EIG_THRESHOLD,
     WIN,
+    _lk_level,
     build_pyramid,
+    tracked_levels,
 )
 from video_annotator_tpu_torch.ops.stage import stage_u8, stage_u8_plain
 
@@ -252,12 +264,58 @@ def lk_level_pairs(stack: torch.Tensor, pts: torch.Tensor, band: torch.Tensor,
     return out[:, 0], out[:, 1], (out[:, 2] > 0.5) & ok_windows
 
 
-def stage_pyramid_pairs(frames: torch.Tensor,
-                        levels: int = DEF_LEVELS) -> Sequence[Optional[torch.Tensor]]:
-    """Staged uint8 pyramid of a (T, H, W) chunk, one stack per level;
-    ``None`` for levels too small for the window (the tracker keeps its
-    coarse guess there, as the TPU path does)."""
-    return [stage_u8(level, pad_value=0, slack=SLACK_ROWS) if _stageable(level) else None
+class LevelCount:
+    """Calls of a level routine that is not a kernel, counted as a
+    :class:`~video_annotator_tpu_torch.ops.cuda_lib.CudaKernel` counts its
+    launches: a caller resets ``launches``, runs a path and reads it."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
+PLAIN_LEVEL = LevelCount("lk_plain_level")
+PLAIN_GRAPHS = 8  # captured plain levels kept, one a set of shapes
+_plain_graphs: dict = {}
+
+
+def plain_level(prev: torch.Tensor, nxt: torch.Tensor, pts: torch.Tensor,
+                guess: torch.Tensor, iters: int):
+    """One level of the plain LK (``ops/lk.py::_lk_level``) on (..., h, w)
+    float levels for (..., N, 2) level positions, counted in
+    :data:`PLAIN_LEVEL`; returns ``(flow, ok)``.
+
+    On a card the level's few hundred small launches would bind it on the
+    host: it is captured once a set of shapes as a CUDA graph
+    (``cuda_lib.graphed``) and replayed, the same operations on the same
+    values. The returned tensors are the graph's outputs, which its next
+    replay overwrites: a caller uses them before it calls again."""
+    PLAIN_LEVEL.launches += 1
+    if prev.device.type != "cuda":
+        return _lk_level(prev, nxt, pts, guess, iters)
+    key = (prev.device, tuple(prev.shape), tuple(pts.shape), iters)
+    replay = _plain_graphs.get(key)
+    if replay is None:
+        if len(_plain_graphs) >= PLAIN_GRAPHS:
+            _plain_graphs.pop(next(iter(_plain_graphs)))
+        replay = _plain_graphs[key] = cuda_lib.graphed(
+            lambda a, b, p, g: _lk_level(a, b, p, g, iters), prev, nxt, pts, guess)
+    return replay(prev, nxt, pts, guess)
+
+
+def stage_pyramid_pairs(frames: torch.Tensor, levels: int = DEF_LEVELS,
+                        plain_levels: bool = False) -> Sequence[Optional[torch.Tensor]]:
+    """Staged uint8 pyramid of a (T, H, W) chunk, one stack per level.
+
+    A level too small for the window (:func:`_stageable`) is ``None``, and
+    the loops keep their coarse guess there, as the TPU path does. With
+    ``plain_levels`` the pyramid holds the levels the plain LK tracks
+    (``tracked_levels``, cv2's rule) and such a level is its (T, h, w)
+    float32 level, which the loops track with :func:`plain_level`."""
+    if plain_levels:
+        levels = tracked_levels(*frames.shape[-2:], levels)
+    return [stage_u8(level, pad_value=0, slack=SLACK_ROWS) if _stageable(level)
+            else level if plain_levels else None
             for level in build_pyramid(frames, levels)]
 
 
@@ -267,13 +325,13 @@ def _stageable(level: torch.Tensor) -> bool:
     return ph >= 4 * DMA_WORDS + 32 and pw >= WCOLS
 
 
-def stage_pyramid(frame: torch.Tensor,
-                  levels: int = DEF_LEVELS) -> Sequence[Optional[torch.Tensor]]:
-    """Staged uint8 pyramid of one (H, W) frame: (H', W') levels with the
-    same padding, slack rows and ``None`` rule as
+def stage_pyramid(frame: torch.Tensor, levels: int = DEF_LEVELS,
+                  plain_levels: bool = False) -> Sequence[Optional[torch.Tensor]]:
+    """Staged pyramid of one (H, W) frame: (H', W') uint8 levels with the
+    same padding, slack rows, ``None`` rule and ``plain_levels`` as
     :func:`stage_pyramid_pairs`."""
     return [None if s is None else s[0]
-            for s in stage_pyramid_pairs(frame[None], levels)]
+            for s in stage_pyramid_pairs(frame[None], levels, plain_levels)]
 
 
 def _in_bounds(pts: torch.Tensor, new_pts: torch.Tensor, h: int, w: int):
@@ -290,11 +348,13 @@ def pyramidal_lk_pairs(staged: Sequence[Optional[torch.Tensor]],
                        valid: torch.Tensor, iters: int = DEF_ITERS):
     """Track N points through each of P adjacent pairs, coarse to fine.
 
-    ``staged`` is :func:`stage_pyramid_pairs` of the chunk's P + 1 frames;
-    ``points`` (P, N, 2) and ``valid`` (P, N) are in level-0 coordinates of
-    frame p. Returns ``(new_points (P, N, 2), status (P, N))``. Points are
-    independent (one warp each), so unlike the TPU path they are not
-    padded to a multiple of 8."""
+    ``staged`` is :func:`stage_pyramid_pairs` of the chunk's P + 1 frames:
+    a uint8 level goes through K2's pairs form, a float level through
+    :func:`plain_level` over the pair axis, a ``None`` level keeps the
+    coarse guess. ``points`` (P, N, 2) and ``valid`` (P, N) are in level-0
+    coordinates of frame p. Returns ``(new_points (P, N, 2), status (P,
+    N))``. Points are independent (one warp each), so unlike the TPU path
+    they are not padded to a multiple of 8."""
     h, w = img_shape
     p_, n_ = points.shape[0], points.shape[1]
     pts = points.reshape(p_ * n_, 2).to(torch.float32)
@@ -302,12 +362,17 @@ def pyramidal_lk_pairs(staged: Sequence[Optional[torch.Tensor]],
     flow = torch.zeros_like(pts)
     status = valid.reshape(-1)
     for lvl in range(len(staged) - 1, -1, -1):
-        if staged[lvl] is None:
-            continue
+        level = staged[lvl]
+        if level is None:
+            continue  # tiny level: keep the coarse guess
         scale = 2.0 ** lvl
-        vx, vy, ok = lk_level_pairs(staged[lvl], pts / scale, band,
-                                    flow / scale, iters)
-        flow = torch.stack([vx, vy], dim=-1) * scale
+        if level.dtype == torch.uint8:
+            vx, vy, ok = lk_level_pairs(level, pts / scale, band, flow / scale, iters)
+            flow = torch.stack([vx, vy], dim=-1) * scale
+        else:
+            f, ok = plain_level(level[:-1], level[1:], (pts / scale).reshape(p_, n_, 2),
+                                (flow / scale).reshape(p_, n_, 2), iters)
+            flow, ok = f.reshape(-1, 2) * scale, ok.reshape(-1)
         status = status & ok
     new_pts = pts + flow
     status = status & _in_bounds(pts, new_pts, h, w)
@@ -319,8 +384,9 @@ def pyramidal_lk_packed(staged_prev: Sequence[Optional[torch.Tensor]],
                         img_shape: Tuple[int, int], points: torch.Tensor,
                         valid: torch.Tensor, iters: int = DEF_ITERS):
     """Track (N, 2) level-0 ``points`` from one frame to the next, coarse
-    to fine, over their :func:`stage_pyramid` pyramids (one
-    ``lk_level_frame`` launch per level). Returns ``(new_points (N, 2),
+    to fine, over their :func:`stage_pyramid` pyramids: one
+    ``lk_level_frame`` launch a uint8 level, one :func:`plain_level` a
+    float level, none a ``None`` level. Returns ``(new_points (N, 2),
     status (N,))``."""
     h, w = img_shape
     pts = points.to(torch.float32)
@@ -331,10 +397,15 @@ def pyramidal_lk_packed(staged_prev: Sequence[Optional[torch.Tensor]],
         if prev is None or nxt is None:
             continue  # tiny level: keep the coarse guess
         scale = 2.0 ** lvl
-        pf, pi, ok_windows = level_args(prev, pts / scale, None, flow / scale)
-        out = lk_level_frame(prev, nxt, pf, pi, iters)
-        flow = out[:, :2] * scale
-        status = status & (out[:, 2] > 0.5) & ok_windows
+        if prev.dtype == torch.uint8:
+            pf, pi, ok_windows = level_args(prev, pts / scale, None, flow / scale)
+            out = lk_level_frame(prev, nxt, pf, pi, iters)
+            flow = out[:, :2] * scale
+            ok = (out[:, 2] > 0.5) & ok_windows
+        else:
+            f, ok = plain_level(prev, nxt, pts / scale, flow / scale, iters)
+            flow = f * scale
+        status = status & ok
     new_pts = pts + flow
     return new_pts, status & _in_bounds(pts, new_pts, h, w)
 

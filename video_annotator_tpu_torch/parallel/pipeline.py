@@ -5,8 +5,9 @@ Port of ``video_annotator_tpu/parallel/pipeline.py`` on
 of frames: streams over ``data``, frames over ``time``; the warped
 output rows are split over ``space``. The step, per rank:
 
-1. tracking: corners on each frame's predecessor, pyramidal LK (kernel
-   K2's pairs form on a card, the plain ``pyramidal_lk`` on the CPU, as
+1. tracking: corners on each frame's predecessor, pyramidal LK (on a
+   card kernel K2's pairs form on the levels it can stage and the plain
+   level on the others, the plain ``pyramidal_lk`` on the CPU, as
    :func:`track_pairs` resolves it), RANSAC per pair. The predecessor of
    a block's first frame is the last frame of the left time neighbour (a
    one-frame halo); the global first frame is tracked against itself. The
@@ -69,7 +70,7 @@ def track_pairs(seq: torch.Tensor, in_camera: Camera, max_corners: int):
     pts, valid = detect_corners(seq[:-1], max_corners=max_corners,
                                 min_distance=MIN_DISTANCE, border=BORDER)
     if resolve_lk(seq.device) == "kernel":
-        staged = stage_pyramid_pairs(seq, LK_LEVELS)
+        staged = stage_pyramid_pairs(seq, LK_LEVELS, plain_levels=True)
         new_pts, status = pyramidal_lk_pairs(staged, tuple(seq.shape[-2:]), pts, valid,
                                              iters=LK_ITERS)
     else:

@@ -17,7 +17,8 @@ the two-phase skeleton: their analysers write a ``similarity`` or
    (:class:`PairTracker`): per chunk of G frames (plus the previous
    chunk's last), box-downsample the luma to the tracking scale, detect
    Shi-Tomasi corners one level lower, stage the uint8 LK pyramids (K3),
-   track every adjacent pair in one LK launch per level (K2, pairs form),
+   track every adjacent pair in one LK launch per level (K2, pairs form;
+   the plain level on a level too small for K2's window),
    estimate each pair's rotation by RANSAC, carry failed pairs over with a
    last-valid scan and chain the deltas with a prefix product.
    ``--analysis-mode tracked`` (:class:`Tracker`): frame by frame, carry
@@ -826,7 +827,8 @@ class _Tracking:
     """What both analysers share: the tracking-scale input camera, the
     RANSAC threshold, the gates of :func:`tracking_gates` and the seeding
     border at tracking resolution, the RANSAC samples, and the LK
-    (``lk``: ``"kernel"`` for K2 over K3-staged uint8 levels on a CUDA
+    (``lk``: ``"kernel"`` for K2 over K3-staged uint8 levels, and the
+    plain level on the levels too small for K2's window, on a CUDA
     device, ``"plain"`` for
     :func:`~video_annotator_tpu_torch.ops.lk.pyramidal_lk` on float levels
     on the CPU, as the JAX package picks its Pallas or XLA LK)."""
@@ -843,7 +845,8 @@ class _Tracking:
         self.border = tracking_border(track_w, self.in_cam.height)
         self.iters = int(options.analysis_iters)
 
-    def hypothesis_pairs(self, status: torch.Tensor, first_index: int) -> torch.Tensor:
+    @staticmethod
+    def hypothesis_pairs(status: torch.Tensor, first_index: int) -> torch.Tensor:
         """(P, H, 2) RANSAC samples among the tracked points of (P, N)
         ``status``, row p drawn from the generator of pair ``first_index +
         p``; the uniforms are drawn on the host and uploaded without a
@@ -888,8 +891,8 @@ class PairTracker(_Tracking):
             pts = pts * self.det_scale + (self.det_scale - 1.0) * 0.5
         if self.lk == "kernel":
             new_pts, status = pyramidal_lk_pairs(
-                stage_pyramid_pairs(grays), (grays.shape[1], grays.shape[2]), pts, valid,
-                iters=self.iters)
+                stage_pyramid_pairs(grays, plain_levels=True), (grays.shape[1], grays.shape[2]),
+                pts, valid, iters=self.iters)
         else:
             new_pts, status = pyramidal_lk(grays[:-1], grays[1:], pts, valid,
                                            iters=self.iters)
@@ -921,9 +924,11 @@ class Tracker(_Tracking):
     reference's per-frame loop.
 
     Each frame is box-downsampled to the tracking scale and, for K2, its
-    pyramid staged once (K3); the frame and its pyramid are carried as the
-    next step's previous frame. Per step: K2's per-frame form over the two
-    staged pyramids (or the plain LK over the two frames), RANSAC on the
+    pyramid staged once (K3; a level too small for K2's window stays
+    float); the frame and its pyramid are carried as the next step's
+    previous frame. Per step: K2's per-frame form over the two staged
+    pyramids and the plain level on the float levels (or the plain LK over
+    the two frames), RANSAC on the
     unit rays, the inlier-gated fallback to the previous
     delta, and ``R_t = orthonormalize(delta . R_{t-1})``.
 
@@ -967,7 +972,7 @@ class Tracker(_Tracking):
         return pts, valid, (gray, self._stage(gray))
 
     def _stage(self, gray: torch.Tensor):
-        return stage_pyramid(gray) if self.lk == "kernel" else ()
+        return stage_pyramid(gray, plain_levels=True) if self.lk == "kernel" else ()
 
     def step(self, state, frame: torch.Tensor, pts: torch.Tensor,
              valid: torch.Tensor, prev_delta: torch.Tensor, r_acc: torch.Tensor,

@@ -23,11 +23,11 @@ input canvas. The 18 configs and their options are the JAX tool's.
 
 On a card the renders analyse with K2 and K3 and encode with K1 (the
 uint8 batch, its 4-tap, mip and per-tile-row modes, the one-frame form for
-the similarity family); the rows that track at 320x240 and 160x120
-(``--analysis-scale 0.5`` and ``0.25`` at 640x480) keep K2's staging rule
-there, which tracks one pyramid level or none, as the JAX package's
-accelerator path does. ``--device cpu`` runs the plain versions and
-tracks with the plain LK.
+the similarity family); the analysers track every level the plain LK
+tracks, K2 on the levels it can stage and the plain level on the others
+(at 640x480 the third, 160x120; at ``--analysis-scale 0.25`` both of the
+two). ``--device cpu`` runs the plain versions and tracks with the plain
+LK.
 
 Usage::
 
