@@ -273,14 +273,14 @@ def test_cli_filter_takes_every_alias(monkeypatch):
 
 def test_cli_trace_is_still_not_ported(monkeypatch, tmp_path, capsys):
     """``--trace DIR`` wraps the render call in a torch.profiler session
-    that writes a Chrome trace into DIR and prints the JAX CLI's line
-    (on the CPU, with the render stubbed: the CLI needs a card to render;
+    that writes a Chrome trace into DIR and prints the JAX CLI's line;
+    the render's profiler opens each stage as a range of the trace (on the CPU, with the render stubbed: the CLI needs a card to render;
     on one, the trace also holds the CUDA kernels, which ``chip_smoke.py``
     checks)."""
     calls = []
 
-    def fake_render(source, dest, options, device):
-        with torch.profiler.record_function("fake_render"):
+    def fake_render(source, dest, options, device, profiler):
+        with torch.profiler.record_function("fake_render"), profiler.stage("track"):
             calls.append((source, dest, device))
             torch.ones(8).sum()
 
@@ -295,3 +295,4 @@ def test_cli_trace_is_still_not_ported(monkeypatch, tmp_path, capsys):
     with open(os.path.join(trace_dir, files[0])) as f:
         trace = json.load(f)
     assert any(e.get("name") == "fake_render" for e in trace["traceEvents"])
+    assert any(e.get("name") == "track" for e in trace["traceEvents"])

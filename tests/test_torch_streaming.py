@@ -154,7 +154,7 @@ def replay_analyser(rotations: np.ndarray):
     r = torch.from_numpy(np.asarray(rotations, np.float32))
 
     class Replay:
-        def __init__(self, meta, options, device):
+        def __init__(self, meta, options, device, profiler=None):
             self.n = 0
 
         def push(self, frame):

@@ -553,13 +553,20 @@ def _device(args) -> str:
 
 def _trace(trace_dir):
     """``--trace DIR``: a torch.profiler session over the render, with the
-    CPU and CUDA activity this build of torch can record, that writes a
-    Chrome trace (``*.pt.trace.json``) into ``DIR`` when it closes."""
+    CPU and CUDA activity this build of torch can record on every thread
+    (the feed's and the writer's too, where torch has
+    ``profile_all_threads``), that writes a Chrome trace
+    (``*.pt.trace.json``) into ``DIR`` when it closes."""
     import torch
 
+    try:
+        config = {"experimental_config": torch.profiler._ExperimentalConfig(
+            profile_all_threads=True)}
+    except TypeError:  # an older torch records the calling thread alone
+        config = {}
     return torch.profiler.profile(
         activities=sorted(torch.profiler.supported_activities(), key=str),
-        on_trace_ready=torch.profiler.tensorboard_trace_handler(trace_dir))
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(trace_dir), **config)
 
 
 def _render(args):
@@ -567,16 +574,22 @@ def _render(args):
 
     options = _render_options(args)  # a malformed --crop stops before the card is asked
     device = _device(args)
+    # Under --trace the render's stages are ranges of the trace, on their threads.
+    kw = {}
+    if args.trace:
+        from video_annotator_tpu_torch.pipeline.profiler import RecordFunctionProfiler
+
+        kw["profiler"] = RecordFunctionProfiler()
     with _trace(args.trace) if args.trace else contextlib.nullcontext():
         if args.compare:
             from video_annotator_tpu_torch.pipeline.compare import render_compare
 
             modes = [m.strip() for m in args.compare.split(",") if m.strip()]
-            render_compare(args.source, args.dest, modes, options, device=device)
+            render_compare(args.source, args.dest, modes, options, device=device, **kw)
         else:
             from video_annotator_tpu_torch.pipeline.render import render
 
-            render(args.source, args.dest, options, device=device)
+            render(args.source, args.dest, options, device=device, **kw)
     if args.trace:
         print(f"device trace written to {args.trace}")
 

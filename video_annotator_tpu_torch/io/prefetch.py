@@ -7,10 +7,14 @@ decoded frame in a ring of pinned host buffers and copies it with
 ``non_blocking`` on a side stream, a few frames ahead of the consumer;
 the consumer's stream waits on the copy's event before using the frame.
 On the CPU frames pass through as tensors.
+
+Both take the render's :class:`~video_annotator_tpu_torch.pipeline.profiler.StageProfiler`
+(or none) and open their stages on their own threads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from typing import Iterator, Optional, Tuple
@@ -21,18 +25,30 @@ import torch
 _SENTINEL = object()
 
 
+def _span(profiler):
+    """``profiler.stage``, or a stage that records nothing."""
+    return profiler.stage if profiler is not None else (lambda name: contextlib.nullcontext())
+
+
 class DevicePrefetcher:
     """Wrap a planar-YUV frame iterator; yields (y, u, v) uint8 tensors on
-    ``device`` with up to ``depth`` frames in flight."""
+    ``device`` with up to ``depth`` frames in flight.
 
-    def __init__(self, frames, depth: int = 3, device="cpu"):
+    Stages of ``profiler``: ``upload`` on the feed thread (``frame-feed``)
+    for each frame (on a card the copy into a pinned slot, the wait for
+    that slot's last copy and the copy's enqueue; on the CPU the tensor
+    conversion), and ``feed-wait`` on the consumer's thread for each pull
+    from the queue, one a frame and one for the end of the stream."""
+
+    def __init__(self, frames, depth: int = 3, device="cpu", profiler=None):
         self._frames = frames
         self._device = torch.device(device)
         self._depth = max(depth, 1)
+        self._span = _span(profiler)
         self._q: "queue.Queue" = queue.Queue(maxsize=self._depth)
         self._err: Optional[BaseException] = None
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread = threading.Thread(target=self._worker, name="frame-feed", daemon=True)
         self._thread.start()
 
     def _upload(self, planes, stream, ring, slot):
@@ -70,12 +86,13 @@ class DevicePrefetcher:
                     planes = next(it)
                 except StopIteration:
                     break
-                if cuda:
-                    item = self._upload(planes, stream, ring, slot)
-                    slot = (slot + 1) % len(ring)
-                else:
-                    item = (tuple(torch.from_numpy(np.array(a, np.uint8))
-                                  for a in planes), None)
+                with self._span("upload"):
+                    if cuda:
+                        item = self._upload(planes, stream, ring, slot)
+                        slot = (slot + 1) % len(ring)
+                    else:
+                        item = (tuple(torch.from_numpy(np.array(a, np.uint8))
+                                      for a in planes), None)
                 self._q.put(item)
             self._q.put(_SENTINEL)
         except BaseException as e:  # propagate into the consumer
@@ -84,7 +101,8 @@ class DevicePrefetcher:
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
         while True:
-            item = self._q.get()
+            with self._span("feed-wait"):
+                item = self._q.get()
             if item is _SENTINEL:
                 if self._err is not None:
                     raise self._err
@@ -112,13 +130,20 @@ class DevicePrefetcher:
 class AsyncFrameWriter:
     """Device->host readback + encode on a worker thread; ``depth`` bounds
     the frames in flight. Errors surface on the next ``write`` or on
-    ``close``."""
+    ``close``.
 
-    def __init__(self, writer, depth: int = 3):
+    Stages of ``profiler``, on the writer thread (``frame-writer``), for
+    each frame: ``readback``, the planes' copy to host memory, which
+    first waits for the device work that made them (the warp); ``sink``,
+    ``writer.write`` (the file, and what is wrapped around it: the HUD,
+    the preview)."""
+
+    def __init__(self, writer, depth: int = 3, profiler=None):
         self._writer = writer
+        self._span = _span(profiler)
         self._q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
         self._err: Optional[BaseException] = None
-        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread = threading.Thread(target=self._worker, name="frame-writer", daemon=True)
         self._thread.start()
 
     def _worker(self):
@@ -129,7 +154,10 @@ class AsyncFrameWriter:
             if self._err is not None:
                 continue  # drain after failure
             try:
-                self._writer.write(tuple(p.cpu().numpy() for p in item))
+                with self._span("readback"):
+                    planes = tuple(p.cpu().numpy() for p in item)
+                with self._span("sink"):
+                    self._writer.write(planes)
             except BaseException as e:
                 self._err = e
 

@@ -56,7 +56,7 @@ def analyse_deshake(source: str, options,
     prev_small = d_max = None
     idx = reader.start_frame - 1
     pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
-                           depth=options.prefetch_depth, device=dev)
+                           depth=options.prefetch_depth, device=dev, profiler=prof)
     try:
         for y, _, _ in pre:
             idx += 1

@@ -266,7 +266,7 @@ def render_compare(source: str, dest: Optional[str], modes: Sequence[str],
                          num_frames)
     write_meta, crop_r = apply_crop_rect(out_meta, options)
     writer = AsyncFrameWriter(open_writer(None if options.no_output else dest,
-                                          write_meta, encoder=options.encoder))
+                                          write_meta, encoder=options.encoder), profiler=prof)
     if crop_r:  # the canvas's rectangle, sliced on the device before the readback
         writer = CropSink(writer, crop_r)
 
@@ -282,7 +282,7 @@ def render_compare(source: str, dest: Optional[str], modes: Sequence[str],
     # The trim window is honoured as the analysers do: corrections index
     # from its first frame, to which the reader was opened.
     pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
-                           depth=options.prefetch_depth, device=dev)
+                           depth=options.prefetch_depth, device=dev, profiler=prof)
     t = 0
     idx = reader.start_frame - 1
     prog = Progress("compare", total=num_frames)

@@ -755,11 +755,13 @@ def wrap_preview(sink, options):
 
 
 def open_sink(source: str, dest: Optional[str], out_meta: VideoMeta,
-              options: RenderOptions, overlay=None):
+              options: RenderOptions, overlay=None,
+              profiler: Optional[StageProfiler] = None):
     """The encode paths' frame sink for ``out_meta``-sized frames on the
     device: the file (cropped size), ``--preview``/``--display`` around
     it, then ``overlay`` (a function that wraps a sink in the ``--debug``
-    HUD), all on the :class:`AsyncFrameWriter` thread, and outermost the
+    HUD), all on the :class:`AsyncFrameWriter` thread (its ``readback``
+    and ``sink`` stages in ``profiler``), and outermost the
     ``--crop W:H[:X:Y]`` rectangle, sliced before the readback so that
     the HUD draws on the cropped frame (the JAX package's nesting)."""
     write_meta, crop_r = apply_crop_rect(out_meta, options)
@@ -769,7 +771,7 @@ def open_sink(source: str, dest: Optional[str], out_meta: VideoMeta,
         options)
     if overlay is not None:
         sink = overlay(sink)
-    writer = AsyncFrameWriter(sink)
+    writer = AsyncFrameWriter(sink, profiler=profiler)
     return CropSink(writer, crop_r) if crop_r else writer
 
 
@@ -831,10 +833,14 @@ class _Tracking:
     plain level on the levels too small for K2's window, on a CUDA
     device, ``"plain"`` for
     :func:`~video_annotator_tpu_torch.ops.lk.pyramidal_lk` on float levels
-    on the CPU, as the JAX package picks its Pallas or XLA LK)."""
+    on the CPU, as the JAX package picks its Pallas or XLA LK), and the
+    ``profiler`` that times their parts (the caller's, or one of their
+    own)."""
 
-    def __init__(self, meta: VideoMeta, options: RenderOptions, device):
+    def __init__(self, meta: VideoMeta, options: RenderOptions, device,
+                 profiler: Optional[StageProfiler] = None):
         self.device = torch.device(device)
+        self.profiler = profiler or StageProfiler()
         self.lk = resolve_lk(self.device)
         in_cam_native = _input_camera(meta, options)
         self.level = analysis_level(options, meta)
@@ -868,10 +874,18 @@ class PairTracker(_Tracking):
     one K2 launch per pyramid level, or the plain LK over the pair axis),
     RANSAC every pair, carry failed pairs (fewer than the inlier gate)
     over with the last good delta, and chain the deltas into accumulated
-    rotations."""
+    rotations.
 
-    def __init__(self, meta: VideoMeta, options: RenderOptions, device):
-        super().__init__(meta, options, device)
+    ``profiler`` times the parts of each call on the host clock, which
+    together cover it: ``detect`` (the box downsample and the corners),
+    ``stage`` (K3's staging, for K2), ``lk``, ``ransac`` (``hypotheses``
+    inside it: the host draws and their upload) and ``chain`` (the
+    last-valid scan and the products). Nothing in a call waits for the
+    device, so on a card each span is the host's enqueue."""
+
+    def __init__(self, meta: VideoMeta, options: RenderOptions, device,
+                 profiler: Optional[StageProfiler] = None):
+        super().__init__(meta, options, device, profiler)
         self.detect_level = max(0, int(options.analysis_detect_level))
         self.det_md = max(1, self.min_distance >> self.detect_level)
         self.det_border = max(4, -(-self.border // (1 << self.detect_level)))
@@ -881,39 +895,47 @@ class PairTracker(_Tracking):
                  offset: int, frames: torch.Tensor):
         """(G+1, H, W) uint8 frames (element 0 = the previous chunk's last)
         -> (r_base', prev_delta', (G, 3, 3) accumulated rotations)."""
-        grays = box_downsample(frames.to(torch.float32), self.level)
+        span = self.profiler.stage
         g = frames.shape[0] - 1
-        det_in = box_downsample(grays[:-1], self.detect_level)
-        pts, valid = detect_corners(det_in, max_corners=MAX_CORNERS,
-                                    min_distance=self.det_md,
-                                    border=self.det_border)
-        if self.detect_level:
-            pts = pts * self.det_scale + (self.det_scale - 1.0) * 0.5
+        with span("detect"):
+            grays = box_downsample(frames.to(torch.float32), self.level)
+            det_in = box_downsample(grays[:-1], self.detect_level)
+            pts, valid = detect_corners(det_in, max_corners=MAX_CORNERS,
+                                        min_distance=self.det_md,
+                                        border=self.det_border)
+            if self.detect_level:
+                pts = pts * self.det_scale + (self.det_scale - 1.0) * 0.5
         if self.lk == "kernel":
-            new_pts, status = pyramidal_lk_pairs(
-                stage_pyramid_pairs(grays, plain_levels=True), (grays.shape[1], grays.shape[2]),
-                pts, valid, iters=self.iters)
+            with span("stage"):
+                staged = stage_pyramid_pairs(grays, plain_levels=True)
+            with span("lk"):
+                new_pts, status = pyramidal_lk_pairs(
+                    staged, (grays.shape[1], grays.shape[2]), pts, valid, iters=self.iters)
         else:
-            new_pts, status = pyramidal_lk(grays[:-1], grays[1:], pts, valid,
-                                           iters=self.iters)
-        est = estimate_rotation(
-            self.in_cam.unproject_unit(pts), self.in_cam.unproject_unit(new_pts),
-            status, threshold_rad=self.threshold,
-            pairs=self.hypothesis_pairs(status, offset))
+            with span("lk"):
+                new_pts, status = pyramidal_lk(grays[:-1], grays[1:], pts, valid,
+                                               iters=self.iters)
+        with span("ransac"):
+            with span("hypotheses"):
+                pairs = self.hypothesis_pairs(status, offset)
+            est = estimate_rotation(
+                self.in_cam.unproject_unit(pts), self.in_cam.unproject_unit(new_pts),
+                status, threshold_rad=self.threshold, pairs=pairs)
 
-        # Last-valid scan: a failed pair inherits the nearest preceding good
-        # delta (the carry for the chunk's first pairs).
-        ok = torch.cat([torch.ones(1, dtype=torch.bool, device=self.device),
-                        est.num_inliers >= self.min_inliers])
-        rots = torch.cat([prev_delta[None], est.rotation])
-        steps = torch.arange(g + 1, device=self.device)
-        last_ok = torch.cummax(torch.where(ok, steps, 0), dim=0).values
-        deltas = rots[last_ok][1:]
-        # R_t = delta_t ... delta_1 . r_base
-        prods = [deltas[0]]
-        for i in range(1, g):
-            prods.append(so3.matmul(deltas[i], prods[-1]))
-        rs = so3.orthonormalize(so3.matmul(torch.stack(prods), r_base))
+        with span("chain"):
+            # Last-valid scan: a failed pair inherits the nearest preceding
+            # good delta (the carry for the chunk's first pairs).
+            ok = torch.cat([torch.ones(1, dtype=torch.bool, device=self.device),
+                            est.num_inliers >= self.min_inliers])
+            rots = torch.cat([prev_delta[None], est.rotation])
+            steps = torch.arange(g + 1, device=self.device)
+            last_ok = torch.cummax(torch.where(ok, steps, 0), dim=0).values
+            deltas = rots[last_ok][1:]
+            # R_t = delta_t ... delta_1 . r_base
+            prods = [deltas[0]]
+            for i in range(1, g):
+                prods.append(so3.matmul(deltas[i], prods[-1]))
+            rs = so3.orthonormalize(so3.matmul(torch.stack(prods), r_base))
         return rs[-1], deltas[-1], rs
 
 
@@ -944,15 +966,16 @@ class Tracker(_Tracking):
     paired path's convention, so the trajectory depends neither on
     ``--analysis-chunk`` nor on the device.
 
-    ``profiler`` times the parts of each step on the host clock (spans
-    ``stage``, ``lk``, ``ransac``, ``chain`` and ``key frame``); on a card
-    the spans measure enqueueing, except ``key frame``, whose status read
-    waits for the device."""
+    ``profiler`` times the parts of each step on the host clock (stages
+    ``stage``, ``lk``, ``ransac``, ``chain`` and ``key frame``, nested in
+    the caller's ``track`` where the caller passes its profiler, as
+    :func:`analyse` and the streaming render do); on a card they measure
+    the host's enqueue, except ``key frame``, whose status read waits for
+    the device."""
 
     def __init__(self, meta: VideoMeta, options: RenderOptions, device,
                  profiler: Optional[StageProfiler] = None):
-        super().__init__(meta, options, device)
-        self.profiler = profiler or StageProfiler()
+        super().__init__(meta, options, device, profiler)
         self.host_syncs = 0
         self._carry = None
 
@@ -1037,18 +1060,21 @@ def analyse(source: str, options: RenderOptions,
     prof = profiler or StageProfiler()
     mode = resolve_analysis_mode(options, device)
     dev = torch.device(device)
-    reader, meta, first, last = open_trimmed(source, options, dev)
-    chunk_n = max(1, int(options.analysis_chunk))
-    eye = torch.eye(3, dtype=torch.float32, device=dev)
-    r_base, prev_delta = eye, eye
-    r_list = []
-    prev_frame = None
-    pending: list = []
-    emitted = 0
-    if mode == "tracked":
-        tracker = Tracker(meta, options, dev)
-    else:
-        pair_tracker = PairTracker(meta, options, dev)
+    with prof.stage("open"):
+        reader, meta, first, last = open_trimmed(source, options, dev)
+        chunk_n = max(1, int(options.analysis_chunk))
+        eye = torch.eye(3, dtype=torch.float32, device=dev)
+        r_base, prev_delta = eye, eye
+        r_list = []
+        prev_frame = None
+        pending: list = []
+        emitted = 0
+        if mode == "tracked":
+            tracker = Tracker(meta, options, dev, prof)
+        else:
+            pair_tracker = PairTracker(meta, options, dev, prof)
+        pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
+                               depth=options.prefetch_depth, device=dev, profiler=prof)
 
     def flush_chunk():
         """Pad the tail by repeating its last frame; padded outputs drop."""
@@ -1064,8 +1090,6 @@ def analyse(source: str, options: RenderOptions,
         emitted += k
         r_list.append(rs[:k])
 
-    pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
-                           depth=options.prefetch_depth, device=dev)
     prog = Progress("analyse", total=(last - first) if meta.num_frames else None)
     idx = reader.start_frame - 1
     try:
@@ -1402,26 +1426,28 @@ def encode(source: str, dest: Optional[str], traj: Trajectory,
     """Smooth + warp + write. Returns the output metadata."""
     prof = profiler or StageProfiler()
     dev = torch.device(device)
-    reader, meta, first, last = open_trimmed(source, options, dev)
-    in_cam, out_cam = build_cameras(meta, options)
-    corrections = compute_corrections(traj, options, dev)
-    if options.rolling_shutter:
-        with prof.stage("scanline"):
-            corrections = _scanline_corrections(
-                source, traj, corrections, options, meta, in_cam, out_cam,
-                num_tile_rows(out_cam.height - out_cam.height % 2), dev)
-    # The prefilter's level map probes the clip's largest correction.
-    need_deg = max_rotation_deg(corrections.reshape(-1, 3, 3))
-    budget_deg = max(options.max_correction_deg, need_deg + 0.5)
-    warper = FrameWarper(in_cam, out_cam, budget_deg, options.prefilter == "auto",
-                         options.interp, dev)
-    out_meta = VideoMeta(width=warper.out_w, height=warper.out_h,
-                         fps=output_fps(options, meta),
-                         num_frames=traj.num_frames)
-    overlay = _rotation_overlay(traj, corrections) if options.debug else None
-    writer = open_sink(source, dest, out_meta, options, overlay)
-    _batched_encode_loop(reader, writer, corrections, warper.warp_yuv_batch,
-                         options, prof, first, last, traj.num_frames, dev)
+    with prof.stage("open"):
+        reader, meta, first, last = open_trimmed(source, options, dev)
+        in_cam, out_cam = build_cameras(meta, options)
+        corrections = compute_corrections(traj, options, dev)
+        if options.rolling_shutter:
+            with prof.stage("scanline"):
+                corrections = _scanline_corrections(
+                    source, traj, corrections, options, meta, in_cam, out_cam,
+                    num_tile_rows(out_cam.height - out_cam.height % 2), dev)
+        # The prefilter's level map probes the clip's largest correction.
+        need_deg = max_rotation_deg(corrections.reshape(-1, 3, 3))
+        budget_deg = max(options.max_correction_deg, need_deg + 0.5)
+        warper = FrameWarper(in_cam, out_cam, budget_deg, options.prefilter == "auto",
+                             options.interp, dev)
+        out_meta = VideoMeta(width=warper.out_w, height=warper.out_h,
+                             fps=output_fps(options, meta),
+                             num_frames=traj.num_frames)
+        overlay = _rotation_overlay(traj, corrections) if options.debug else None
+        writer = open_sink(source, dest, out_meta, options, overlay, prof)
+        feed = _encode_feed(reader, corrections, options, prof, dev)
+    _batched_encode_loop(reader, writer, feed, warper.warp_yuv_batch, prof, first, last,
+                         traj.num_frames)
     return out_meta
 
 
@@ -1478,13 +1504,12 @@ def _scanline_corrections(source: str, traj: Trajectory, corrections: np.ndarray
                             fractions).cpu().numpy()
 
 
-def _batched_encode_loop(reader, writer, corrections, warp_batch_fn, options,
-                         prof, first, last, total, device):
-    """Device-batched encode: prefetched frames, per-batch rotation stacks
-    ((T, 3, 3), or (T, ny, 3, 3) with ``--rolling-shutter``) uploaded up
-    front, the tail padded with its last frame (padded outputs
-    dropped), outputs given to ``writer`` (:func:`open_sink`: read back
-    and written on a worker thread)."""
+def _encode_feed(reader, corrections, options, prof, device):
+    """What the batched encode needs before its loop, made in its phase's
+    ``open`` stage: the per-batch rotation stacks ((T, 3, 3), or (T, ny,
+    3, 3) with ``--rolling-shutter``) uploaded up front, the last padded
+    with its last rotation, and the prefetched frames. Returns ``(pre,
+    rots_dev, batch, corrections)``."""
     corr = np.asarray(corrections, np.float32)
     batch = max(1, int(options.warp_batch or DEFAULT_WARP_BATCH))
     rots_dev = [
@@ -1494,7 +1519,16 @@ def _batched_encode_loop(reader, writer, corrections, warp_batch_fn, options,
         for i in range(0, len(corr), batch)
     ]
     pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
-                           depth=options.prefetch_depth, device=device)
+                           depth=options.prefetch_depth, device=device, profiler=prof)
+    return pre, rots_dev, batch, len(corr)
+
+
+def _batched_encode_loop(reader, writer, feed, warp_batch_fn, prof, first, last, total):
+    """Device-batched encode of :func:`_encode_feed`'s ``feed``: prefetched
+    frames warped a batch at a time, the tail padded with its last frame
+    (padded outputs dropped), outputs given to ``writer``
+    (:func:`open_sink`: read back and written on a worker thread)."""
+    pre, rots_dev, batch, n_corr = feed
     idx = reader.start_frame - 1
     t = 0
     pending = []
@@ -1519,7 +1553,7 @@ def _batched_encode_loop(reader, writer, corrections, warp_batch_fn, options,
             idx += 1
             if idx < first:
                 continue
-            if idx >= last or t >= corr.shape[0]:
+            if idx >= last or t >= n_corr:
                 break
             pending.append((y, u, v))
             t += 1
@@ -1581,37 +1615,45 @@ def encode_2d(source: str, dest: Optional[str], traj: Trajectory,
     _refuse_translation_upsample(up, traj.kind != "similarity")
     if traj.kind not in ("similarity", "translation"):
         raise ValueError(f"encode_2d cannot handle kind {traj.kind!r}")
-    reader, meta, first, last = open_trimmed(source, options, dev)
-    out_w = int(meta.width * up) // 2 * 2
-    out_h = int(meta.height * up) // 2 * 2
-    if traj.kind == "similarity":
-        corrections = similarity_corrections(traj, options)
-        if up != 1.0:
-            # Compose with the pixel-centre-correct upscale sampler
-            # x_src = (x + 0.5) / s - 0.5: a pure similarity (translation
-            # c, log-scale -log s).
-            c = 0.5 * (1.0 / up - 1.0)
-            t_up = torch.tensor([c, c, 0.0, -np.log(up)], dtype=torch.float32)
-            corrections = compose_similarity(
-                torch.from_numpy(corrections), t_up).numpy()
+    with prof.stage("open"):
+        reader, meta, first, last = open_trimmed(source, options, dev)
+        out_w = int(meta.width * up) // 2 * 2
+        out_h = int(meta.height * up) // 2 * 2
+        if traj.kind == "similarity":
+            corrections = similarity_corrections(traj, options)
+            if up != 1.0:
+                # Compose with the pixel-centre-correct upscale sampler
+                # x_src = (x + 0.5) / s - 0.5: a pure similarity (translation
+                # c, log-scale -log s).
+                c = 0.5 * (1.0 / up - 1.0)
+                t_up = torch.tensor([c, c, 0.0, -np.log(up)], dtype=torch.float32)
+                corrections = compose_similarity(
+                    torch.from_numpy(corrections), t_up).numpy()
 
-        def warp(y, u, v, p):
-            return warp_frame_similarity(y, u, v, p, interp=options.interp,
-                                         out_size=(out_h, out_w))
-    else:
-        corrections = deshake_corrections(traj, options)
-        warp = warp_frame_deshake
+            def warp(y, u, v, p):
+                return warp_frame_similarity(y, u, v, p, interp=options.interp,
+                                             out_size=(out_h, out_w))
+        else:
+            corrections = deshake_corrections(traj, options)
+            warp = warp_frame_deshake
 
-    out_meta = VideoMeta(width=out_w, height=out_h, fps=output_fps(options, meta),
-                         num_frames=traj.num_frames)
-    overlay = _2d_overlay(traj, corrections) if options.debug else None
-    writer = open_sink(source, dest, out_meta, options, overlay)
-    if traj.kind == "similarity" and dev.type == "cuda":
-        pwarper = SimilarityWarper(meta.width, meta.height, interp=options.interp,
-                                   out_size=(out_h, out_w))
-        _batched_encode_loop(reader, writer, SimilarityWarper.matrices(corrections),
-                             pwarper.warp_yuv_batch, options, prof, first, last,
-                             traj.num_frames, dev)
+        out_meta = VideoMeta(width=out_w, height=out_h, fps=output_fps(options, meta),
+                             num_frames=traj.num_frames)
+        overlay = _2d_overlay(traj, corrections) if options.debug else None
+        writer = open_sink(source, dest, out_meta, options, overlay, prof)
+        kernel = traj.kind == "similarity" and dev.type == "cuda"
+        if kernel:
+            pwarper = SimilarityWarper(meta.width, meta.height, interp=options.interp,
+                                       out_size=(out_h, out_w))
+            feed = _encode_feed(reader, SimilarityWarper.matrices(corrections), options, prof, dev)
+        else:
+            # One frame per batch: the loop pads a short batch with repeated
+            # frames, which a frame-by-frame warp would compute for nothing.
+            feed = _encode_feed(reader, corrections, dataclasses.replace(options, warp_batch=1),
+                                prof, dev)
+    if kernel:
+        _batched_encode_loop(reader, writer, feed, pwarper.warp_yuv_batch, prof, first, last,
+                             traj.num_frames)
         return out_meta
 
     in_h2 = meta.height - meta.height % 2
@@ -1627,11 +1669,7 @@ def encode_2d(source: str, dest: Optional[str], traj: Trajectory,
             out.append(tuple(warp_kernel.to_u8(p) for p in planes))
         return out
 
-    # One frame per batch: the loop pads a short batch with repeated
-    # frames, which a frame-by-frame warp would compute for nothing.
-    _batched_encode_loop(reader, writer, corrections, warp_frames,
-                         dataclasses.replace(options, warp_batch=1), prof,
-                         first, last, traj.num_frames, dev)
+    _batched_encode_loop(reader, writer, feed, warp_frames, prof, first, last, traj.num_frames)
     return out_meta
 
 
@@ -1721,7 +1759,8 @@ def render(source: str, dest: Optional[str],
     if needs_motion and not options.encode_only:
         traj = _analyse_family(family, source, options, prof, device)
         if tpath:
-            traj.save(tpath)
+            with prof.stage("save"):
+                traj.save(tpath)
     elif needs_motion:
         if not (tpath and os.path.exists(tpath)):
             raise FileNotFoundError(

@@ -103,39 +103,42 @@ def render_streaming(source: str, dest: Optional[str],
             f"global RTS")
     mode = resolve_analysis_mode(options, device)
     dev = torch.device(device)
-    reader, meta, first, last = open_trimmed(source, options, dev)
-    # stabilise none without a horizon lock needs no measured attitude:
-    # the tracker is skipped and the corrections are the attitude alone.
-    needs_motion = options.stabilise != "none" or options.horizon_lock
-    pair_tracker = tracker = None
-    if needs_motion and mode == "paired":
-        pair_tracker = PairTracker(meta, options, dev)
-    elif needs_motion:
-        tracker = Tracker(meta, options, dev)
-    in_cam, out_cam = build_cameras(meta, options)
-    up0 = (_estimate_up0(source, float(first) / float(meta.fps), dev)
-           if options.horizon_lock else None)
-    warper = FrameWarper(in_cam, out_cam, streaming_budget_deg(options, up0),
-                         options.prefilter == "auto", options.interp, dev)
-    n_expect = (last - first) if meta.num_frames else 0
-    out_meta = VideoMeta(width=warper.out_w, height=warper.out_h,
-                         fps=output_fps(options, meta), num_frames=n_expect)
-    overlay = None
-    if options.device_sink:
-        # The frames fold into a checksum on the device: no readback, no
-        # writer thread, none of the host wrappers (crop, HUD, preview).
-        writer = DeviceReduceSink()
-    else:
-        def hud(sink):
-            # The corrections come a batch at a time here, so the HUD is
-            # text only: no curves over the whole clip to plot up front.
-            nonlocal overlay
-            from video_annotator_tpu_torch.pipeline.debug import DebugOverlayWriter
+    with prof.stage("open"):
+        reader, meta, first, last = open_trimmed(source, options, dev)
+        # stabilise none without a horizon lock needs no measured attitude:
+        # the tracker is skipped and the corrections are the attitude alone.
+        needs_motion = options.stabilise != "none" or options.horizon_lock
+        pair_tracker = tracker = None
+        if needs_motion and mode == "paired":
+            pair_tracker = PairTracker(meta, options, dev, prof)
+        elif needs_motion:
+            tracker = Tracker(meta, options, dev, prof)
+        in_cam, out_cam = build_cameras(meta, options)
+        up0 = (_estimate_up0(source, float(first) / float(meta.fps), dev)
+               if options.horizon_lock else None)
+        warper = FrameWarper(in_cam, out_cam, streaming_budget_deg(options, up0),
+                             options.prefilter == "auto", options.interp, dev)
+        n_expect = (last - first) if meta.num_frames else 0
+        out_meta = VideoMeta(width=warper.out_w, height=warper.out_h,
+                             fps=output_fps(options, meta), num_frames=n_expect)
+        overlay = None
+        if options.device_sink:
+            # The frames fold into a checksum on the device: no readback, no
+            # writer thread, none of the host wrappers (crop, HUD, preview).
+            writer = DeviceReduceSink()
+        else:
+            def hud(sink):
+                # The corrections come a batch at a time here, so the HUD is
+                # text only: no curves over the whole clip to plot up front.
+                nonlocal overlay
+                from video_annotator_tpu_torch.pipeline.debug import DebugOverlayWriter
 
-            overlay = DebugOverlayWriter(sink)
-            return overlay
-        writer = open_sink(source, dest, out_meta, options,
-                           hud if options.debug else None)
+                overlay = DebugOverlayWriter(sink)
+                return overlay
+            writer = open_sink(source, dest, out_meta, options,
+                               hud if options.debug else None, prof)
+        pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
+                               depth=options.prefetch_depth, device=dev, profiler=prof)
     batch = max(1, int(options.warp_batch or DEFAULT_WARP_BATCH))
     want_radius = options.stabilise_radius if options.stabilise == "smooth" else 0
 
@@ -199,8 +202,6 @@ def render_streaming(source: str, dest: Optional[str],
         emitted += n
         prog.tick(n)
 
-    pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
-                           depth=options.prefetch_depth, device=dev)
     prog = Progress("render", total=n_expect or None)
     idx = reader.start_frame - 1
     try:
@@ -247,8 +248,9 @@ def render_streaming(source: str, dest: Optional[str],
     # The trajectory checkpoint, so a later --encode-only can reuse this
     # pass's analysis; an identity trajectory (stabilise none) is not saved.
     if dest and rots and needs_motion:
-        rotvecs = so3.log(torch.stack(rots)).cpu().numpy().astype(np.float64)
-        Trajectory(params=rotvecs, kind="so3", fps=meta.fps, width=meta.width,
-                   height=meta.height, source=source,
-                   up0=up0).save(trajectory_path(dest))
+        with prof.stage("save"):
+            rotvecs = so3.log(torch.stack(rots)).cpu().numpy().astype(np.float64)
+            Trajectory(params=rotvecs, kind="so3", fps=meta.fps, width=meta.width,
+                       height=meta.height, source=source,
+                       up0=up0).save(trajectory_path(dest))
     return out_meta
