@@ -6,7 +6,9 @@ Port of ``video_annotator_tpu/io/prefetch.py`` (``DevicePrefetcher``,
 decoded frame in a ring of pinned host buffers and copies it with
 ``non_blocking`` on a side stream, a few frames ahead of the consumer;
 the consumer's stream waits on the copy's event before using the frame.
-On the CPU frames pass through as tensors.
+On the CPU frames pass through as tensors. The writer reads frames bound
+for a bare y4m sink back into one pinned frame record, which the sink
+writes whole.
 
 Both take the render's :class:`~video_annotator_tpu_torch.pipeline.profiler.StageProfiler`
 (or none) and open their stages on their own threads.
@@ -21,6 +23,8 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from video_annotator_tpu_torch.io.y4m import FRAME_MARKER
 
 _SENTINEL = object()
 
@@ -132,19 +136,76 @@ class AsyncFrameWriter:
     the frames in flight. Errors surface on the next ``write`` or on
     ``close``.
 
+    The frames take one of two paths, chosen from the sink and counted in
+    ``profiler`` by name:
+
+    - ``record``, where the sink takes whole y4m frame records
+      (``write_record``: a y4m file or pipe with no HUD, preview or
+      display wrapped around it). The planes are copied, on the stream
+      that made them, into one host buffer laid out as the frame's record
+      (:data:`~video_annotator_tpu_torch.io.y4m.FRAME_MARKER`, Y, U, V),
+      page-locked on a card and allocated at the first frame, which the
+      sink writes whole. ``pipe_bytes`` notes the buffer of the pipe the
+      records go into.
+    - ``planes`` for every other sink: numpy copies of the planes, which
+      the HUD and the preview draw on, to ``writer.write``.
+
     Stages of ``profiler``, on the writer thread (``frame-writer``), for
     each frame: ``readback``, the planes' copy to host memory, which
     first waits for the device work that made them (the warp); ``sink``,
-    ``writer.write`` (the file, and what is wrapped around it: the HUD,
-    the preview)."""
+    the write (the file, and what is wrapped around it: the HUD, the
+    preview)."""
 
     def __init__(self, writer, depth: int = 3, profiler=None):
         self._writer = writer
         self._span = _span(profiler)
+        self._count = profiler.count if profiler is not None else (lambda name: None)
+        self._note = profiler.note if profiler is not None else (lambda name, value: None)
+        self._records = hasattr(writer, "write_record")
+        self._record = None  # (the host buffer as numpy, its Y, U and V views)
         self._q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
         self._err: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._worker, name="frame-writer", daemon=True)
         self._thread.start()
+
+    def _record_views(self, planes):
+        if self._record is None:
+            sizes = [p.numel() for p in planes]
+            buf = torch.empty(len(FRAME_MARKER) + sum(sizes), dtype=torch.uint8,
+                              pin_memory=planes[0].is_cuda)
+            buf.numpy()[:len(FRAME_MARKER)] = np.frombuffer(FRAME_MARKER, np.uint8)
+            views, at = [], len(FRAME_MARKER)
+            for p, n in zip(planes, sizes):
+                views.append(buf[at:at + n].view(p.shape))
+                at += n
+            self._record = (buf.numpy(), views)
+        return self._record[1]
+
+    def _write_record(self, planes, stream):
+        with self._span("readback"):
+            views = self._record_views(planes)
+            if stream is None:
+                for view, p in zip(views, planes):
+                    view.copy_(p)
+            else:
+                with torch.cuda.stream(stream):
+                    for view, p in zip(views, planes):
+                        view.copy_(p, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                done.synchronize()  # releases the interpreter lock
+        with self._span("sink"):
+            self._writer.write_record(self._record[0])
+        self._count("record")
+        if self._writer.pipe_bytes is not None:
+            self._note("pipe_bytes", self._writer.pipe_bytes)
+
+    def _write_planes(self, planes):
+        with self._span("readback"):
+            host = tuple(p.cpu().numpy() for p in planes)
+        with self._span("sink"):
+            self._writer.write(host)
+        self._count("planes")
 
     def _worker(self):
         while True:
@@ -154,17 +215,18 @@ class AsyncFrameWriter:
             if self._err is not None:
                 continue  # drain after failure
             try:
-                with self._span("readback"):
-                    planes = tuple(p.cpu().numpy() for p in item)
-                with self._span("sink"):
-                    self._writer.write(planes)
+                if self._records:
+                    self._write_record(*item)
+                else:
+                    self._write_planes(item[0])
             except BaseException as e:
                 self._err = e
 
     def write(self, planes):
         if self._err is not None:
             raise self._err
-        self._q.put(planes)
+        p = planes[0]
+        self._q.put((planes, torch.cuda.current_stream(p.device) if p.is_cuda else None))
 
     def close(self):
         self._q.put(_SENTINEL)

@@ -149,11 +149,23 @@ def open_reader(path: str, start_frame: int = 0, device="cpu",
 
 
 class _Y4MSink:
+    """Raw y4m into a file or a FIFO. Besides ``write`` (numpy planes) it
+    takes whole frame records (``write_record``, :meth:`Y4MWriter.write_record`),
+    which :class:`~video_annotator_tpu_torch.io.prefetch.AsyncFrameWriter`
+    reads back into when nothing sits between it and this sink."""
+
     def __init__(self, path: str, meta: VideoMeta):
         self._w = y4m_mod.Y4MWriter(path, meta.width, meta.height, meta.fps)
 
     def write(self, planes: Planes):
         self._w.write(*planes)
+
+    def write_record(self, record):
+        self._w.write_record(record)
+
+    @property
+    def pipe_bytes(self) -> Optional[int]:
+        return self._w.pipe_bytes
 
     def close(self):
         self._w.close()
@@ -190,9 +202,23 @@ class _FfmpegSink:
         try:
             self._pipe.write(*planes)
         except BrokenPipeError:
-            self._proc.wait()
-            raise RuntimeError(f"delegated ffmpeg encoder exited early "
-                               f"(rc={self._proc.returncode}) writing {self._path}")
+            self._exited_early()
+
+    def write_record(self, record):
+        """A whole y4m frame record into the pipe, as :class:`_Y4MSink`."""
+        try:
+            self._pipe.write_record(record)
+        except BrokenPipeError:
+            self._exited_early()
+
+    @property
+    def pipe_bytes(self) -> Optional[int]:
+        return self._pipe.pipe_bytes
+
+    def _exited_early(self):
+        self._proc.wait()
+        raise RuntimeError(f"delegated ffmpeg encoder exited early "
+                           f"(rc={self._proc.returncode}) writing {self._path}")
 
     def close(self):
         if self._proc is None:

@@ -52,7 +52,8 @@ class StageProfiler:
     they copy to the host; ``upload`` waits for its ring slot's last copy.
 
     ``totals()`` and ``all_totals()`` give seconds and calls by name,
-    inclusive of children; ``report()`` groups the stages by thread.
+    inclusive of children; ``report()`` groups the stages by thread, each
+    thread's counters (``count``, ``note``) after its stages.
     Stages nest as ``with`` blocks do: a stage opened in a generator must
     close before it yields.
     """
@@ -63,6 +64,8 @@ class StageProfiler:
         # calls of each carry one-time costs (kernel builds, allocator
         # growth) and are kept apart from the steady state.
         self._nodes = OrderedDict()
+        # (thread name, counter name) -> value
+        self._counters = OrderedDict()
         self._warmup = warmup
         self._lock = threading.Lock()
         self._local = threading.local()
@@ -97,6 +100,26 @@ class StageProfiler:
                     node[2] += dt - frame.children
                     node[3] += 1
 
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to this thread's counter ``name`` (the writer's frames
+        by path)."""
+        key = (threading.current_thread().name, name)
+        with self._lock:
+            self._counters[key] = self._counters.get(key, 0) + n
+
+    def note(self, name: str, value) -> None:
+        """Set this thread's counter ``name`` to ``value`` (a size found)."""
+        with self._lock:
+            self._counters[(threading.current_thread().name, name)] = value
+
+    def counts(self):
+        """Counter name -> value, summed over threads, first seen first."""
+        out = OrderedDict()
+        with self._lock:
+            for (_, name), value in self._counters.items():
+                out[name] = out.get(name, 0) + value
+        return out
+
     def wrap_iter(self, name: str, it):
         """Time each pull from an iterator (decode stages)."""
         while True:
@@ -119,9 +142,11 @@ class StageProfiler:
         """
         with self._lock:
             nodes = [(k, list(v)) for k, v in self._nodes.items()]
+            counters = list(self._counters.items())
         top = [v for (thread, path), v in nodes if thread == self._owner and len(path) == 1]
         total = sum(v[1] for v in top) or 1e-12
-        threads = sorted(dict.fromkeys(t for (t, _), _ in nodes), key=lambda t: t != self._owner)
+        threads = sorted(dict.fromkeys(t for (t, _), _ in nodes + counters),
+                         key=lambda t: t != self._owner)
         lines = []
 
         def emit(thread, parent):
@@ -144,6 +169,9 @@ class StageProfiler:
         for thread in threads:
             lines.append(f"[{thread}]")
             emit(thread, ())
+            mine = [f"{name} {value}" for (t, name), value in counters if t == thread]
+            if mine:
+                lines.append("  counts: " + ", ".join(mine))
         warm = sum(v[4] for v in top)
         if warm > 0.01:
             lines.append(f"warmup/compile (excluded): {warm:.1f} s total")
