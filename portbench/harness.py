@@ -151,6 +151,12 @@ def span_profiler():
     return SpanProfiler()
 
 
+def wants_device_trace(plan, trace: bool) -> bool:
+    """Whether the window is traced on the device: always with ``--trace 1``,
+    and with ``--trace 0`` where an end-to-end metric reads the trace."""
+    return trace or any(m["source"] == "device_trace" for m in plan.end_to_end)
+
+
 def stage_delta(after, before) -> dict:
     sec1, n1 = after
     sec0, n0 = before
@@ -175,63 +181,84 @@ def run_cell(plan, seed: int, seconds: float, trace: bool, device: str,
              t_start: float, warmup: bool = True) -> dict:
     """Run ``plan`` once; returns the result line's fields and the checks.
     ``warmup=False`` (a process that has run the cell before) skips the
-    warm-up job."""
+    warm-up job.
+
+    ``setup_s`` is ``t_start`` to the window's start less the benchmark's
+    own work, which no user of the program pays: the collector's start, the
+    clip's render, its write, the truth file and the profiler's start. The clip is made after the
+    CUDA context and before the warm-up job, through pageable host memory,
+    and the device memory it cached is given back, so that the warm-up job
+    grows the program's allocators itself."""
     from video_annotator_tpu_torch.pipeline.render import render
 
-    t_import = time.monotonic()
+    parts = {"imports": time.monotonic() - t_start}
     cfg, mix = plan.cfg, plan.mix
     cuda = torch.device(device).type == "cuda"
+    if cuda:
+        from video_annotator_tpu_torch.ops import cuda_lib
+
+        t = time.monotonic()
+        torch.zeros(1, device=device)
+        torch.cuda.synchronize()
+        parts["CUDA context"] = time.monotonic() - t
+        t = time.monotonic()
+        cuda_lib.library()
+        parts["kernels"] = time.monotonic() - t
     workdir = tempfile.mkdtemp(prefix="portbench-", dir=tempfile.gettempdir())
     collector = None
     try:
-        t_clip = time.monotonic()
+        t_inputs = time.monotonic()
+        collector = Collector(workdir)  # its interpreter starts while the clip is made
         clip = generator.Clip(cfg, seed)
         src = os.path.join(workdir, "clip.y4m")
-        clip.write_y4m(src, device)
-        t_clip = time.monotonic() - t_clip
+        clip_bytes = clip.write_y4m(src, device)
         truth_file = None
         if mix["trajectory_input"]:
             truth_file = os.path.join(workdir, "truth.traj.npz")
             trajfile.write(truth_file, reference.truth_params(clip.rotvecs), clip.fps,
                            clip.width, clip.height, src)
-        collector = Collector(workdir)
+        if cuda:
+            torch.cuda.empty_cache()
+        t_inputs = time.monotonic() - t_inputs
+        t = time.monotonic()
         prof = span_profiler()
         base = [src, "out.y4m", *cfg["render_args"], *mix["render_args"]]
         if not cuda:
             base += ["--device", "cpu"]
         options = render_options(base)
-        warm = mix.get("warmup_frames")
-        warm_options = options
-        if warm and warm < clip.frames:
-            end_s = warm * clip.fps.denominator / clip.fps.numerator
-            warm_options = render_options(base + ["--end", repr(end_s)])
+        parts["options"] = time.monotonic() - t
 
-        def job(name, opts, sample=()):
+        def job(name, sample=()):
             dest = (collector.expect(name, sample) if mix["frames_out"]
                     else os.path.join(workdir, name))
             if truth_file:
                 os.link(truth_file, trajfile.path_for(dest))
-            render(src, dest, opts, prof, device=device)
+            render(src, dest, options, prof, device=device)
             return dest
 
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        t_warm = time.monotonic()
-        if warmup:
-            job("warmup.y4m", warm_options)
+        t = time.monotonic()
+        if warmup:  # a whole job: every ring, pool and allocator at a window job's depth
+            job("warmup.y4m")
         if cuda:
             torch.cuda.synchronize()
-        print(f"[portbench] set-up: imports {t_import - t_start:.2f} s, clip {t_clip:.2f} s, "
-              f"warm-up job {time.monotonic() - t_warm:.2f} s", file=sys.stderr)
+        parts["warm-up job"] = time.monotonic() - t
 
+        setup_s = time.monotonic() - t_start - t_inputs
+        t = time.monotonic()
         profiler = None
-        if trace and cuda:
+        if cuda and wants_device_trace(plan, trace):
             profiler = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
             profiler.__enter__()
-            prof.spans = []
-            torch.cuda.reset_peak_memory_stats()
-        setup_s = time.monotonic() - t_start
+            if trace:
+                prof.spans = []
+                torch.cuda.reset_peak_memory_stats()
+        print("[portbench] set-up: " + ", ".join(f"{k} {v:.2f} s" for k, v in parts.items())
+              + f"; setup_s {setup_s:.2f} s. Outside it: collector and clip {t_inputs:.2f} s, "
+              f"{clip_bytes} bytes; the profiler's start {time.monotonic() - t:.2f} s",
+              file=sys.stderr)
         stages0 = prof.all_totals()
         jobs, failed = [], 0
         t0 = time.monotonic()
@@ -242,7 +269,7 @@ def run_cell(plan, seed: int, seconds: float, trace: bool, device: str,
                       if mix["frames_out"] else ())
             js = time.monotonic()
             try:
-                dest = job(f"job{k}.y4m", options, sample)
+                dest = job(f"job{k}.y4m", sample)
             except Exception:  # counted as failed; the run is then not correct
                 print(f"[portbench] job {k} failed:", file=sys.stderr)
                 traceback.print_exc()
@@ -262,9 +289,9 @@ def run_cell(plan, seed: int, seconds: float, trace: bool, device: str,
         if profiler is not None:
             tr = time.monotonic()
             profiler.__exit__(None, None, None)
-            events = kineto_device_events(profiler)
+            events = kineto_device_events(profiler, names=trace)
             del profiler
-            device_trace = DeviceTrace(events, w0_ns, w1_ns, prof.spans)
+            device_trace = DeviceTrace(events, w0_ns, w1_ns, prof.spans or ())
             print(f"[portbench] trace: {len(events)} device events read in "
                   f"{time.monotonic() - tr:.1f} s", file=sys.stderr)
         found = forbidden_modules()
@@ -278,6 +305,9 @@ def run_cell(plan, seed: int, seconds: float, trace: bool, device: str,
         collector = None
         for k, j in enumerate(jobs):
             print(f"[portbench] job {k}: {j['end'] - j['start']:.3f} s", file=sys.stderr)
+        print(f"[portbench] window {t1 - t0:.3f} s, stage seconds: " + ", ".join(
+            f"{k} {v:.3f}" for k, (v, _) in sorted(stages.items(), key=lambda kv: -kv[1][0])),
+            file=sys.stderr)
         del prof
         gc.collect()
         if cuda:
@@ -296,7 +326,7 @@ def run_cell(plan, seed: int, seconds: float, trace: bool, device: str,
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         out = {"attempted": len(jobs), "failed": failed, "metrics": metrics,
                "checks": checks, "forbidden": found, "peak_bytes": peak,
-               "trace": device_trace}
+               "trace": device_trace if trace else None}
         return out
     finally:
         if collector is not None:

@@ -53,3 +53,16 @@ def all_cells_bench() -> dict:
                 workloads=[{"name": n, "config": c, "traffic": t, "chips": 1}
                            for n, (c, t) in CELLS.items()],
                 end_to_end=metrics(bench["end_to_end"]), per_layer=[])
+
+
+def small_plan(cell: str):
+    """``cell``'s plan from :func:`all_cells_bench` at 192x144 and 40 frames,
+    for a whole run on the CPU."""
+    import copy
+
+    from portbench import harness
+
+    plan = harness.cell_plan(all_cells_bench(), cell)
+    plan.cfg = copy.deepcopy(plan.cfg)
+    plan.cfg.update(width=192, height=144, frames=40)
+    return plan

@@ -44,7 +44,7 @@ def test_cell_finds_its_files_and_metrics(cell):
     plan = harness.cell_plan(BENCH, cell["name"])
     mix = plan.mix
     assert set(mix) >= {"render_args", "frames_out", "analyses", "trajectory_input",
-                        "warmup_frames", "sample_frames_per_job"}
+                        "sample_frames_per_job"}
     harness.render_options(["clip.y4m", "out.y4m", *plan.cfg["render_args"], *mix["render_args"]])
     names = [m["name"] for m in plan.end_to_end]
     assert "setup_s" in names and len(names) >= 2

@@ -6,29 +6,18 @@ unchanged, half of the batch left out, an answer altered where it is
 produced. The cells run on one card, so no exchange between cards can be
 left out."""
 
-import copy
 import sys
 import time
 
 import numpy as np
 import pytest
 import torch
-from conftest import CELLS, all_cells_bench
+from conftest import CELLS, small_plan
 
 from portbench import harness
 
 sys.path.insert(0, str(harness.HERE))
 import run  # noqa: E402
-
-BENCH = all_cells_bench()
-
-
-def small_plan(cell: str):
-    plan = harness.cell_plan(BENCH, cell)
-    plan.cfg = copy.deepcopy(plan.cfg)
-    plan.cfg.update(width=192, height=144, frames=40)
-    plan.mix = dict(plan.mix, warmup_frames=8)
-    return plan
 
 
 def identity_analyse(real):

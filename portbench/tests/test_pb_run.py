@@ -72,8 +72,13 @@ def test_without_a_card_it_exits_nonzero_and_prints_no_result():
 def test_plan_lists_each_cells_metrics():
     plan = harness.cell_plan(harness.load_json(harness.ROOT / "BENCHMARK.json"),
                              "h4b_1440p60.streaming")
-    assert [m["name"] for m in plan.end_to_end] == ["render_fps", "setup_s"]
-    assert all(m["moves"] == "render_fps" for m in plan.per_layer) and len(plan.per_layer) == 6
+    assert [m["name"] for m in plan.end_to_end] == ["card_ms_per_frame", "setup_s"]
+    assert [m["name"] for m in plan.per_layer] == [
+        "decode_ms_per_frame.render", "analyse_ms_per_frame.render", "write_ms_per_frame",
+        "k1_warp_roofline", "device_idle_share.render", "peak_device_GiB.render",
+        "readback_ms_per_frame", "sink_ms_per_frame", "upload_ms_per_frame",
+        "feed_wait_ms_per_frame", "job_open_ms", "render_fps.window"]
+    assert all(m["moves"] == "card_ms_per_frame" for m in plan.per_layer)
 
 
 def test_idle_gaps_sweep_agrees_with_a_scan():
@@ -104,3 +109,28 @@ def test_idle_gaps_sweep_agrees_with_a_scan():
     want = sorted(totals.items(), key=lambda kv: -kv[1])[:10]
     assert [[n, pytest.approx(v * 1e-9)] for n, v in want] == t.idle_gaps()
     assert t.busy_s + sum(v for _, v in totals.items()) * 1e-9 == pytest.approx(t.window_s)
+
+
+def test_the_window_is_traced_where_a_metric_reads_the_trace():
+    bench = harness.load_json(harness.ROOT / "BENCHMARK.json")
+    plan = harness.cell_plan(bench, "h4b_1440p60.streaming")
+    assert harness.wants_device_trace(plan, False) and harness.wants_device_trace(plan, True)
+    host_only = dict(bench, end_to_end=[m for m in bench["end_to_end"]
+                                        if m["source"] == "host_clock"])
+    plan = harness.cell_plan(host_only, "h4b_1440p60.streaming")
+    assert not harness.wants_device_trace(plan, False) and harness.wants_device_trace(plan, True)
+
+
+def test_card_ms_per_frame_is_busy_time_over_the_frames_received():
+    from types import SimpleNamespace
+
+    from portbench.trace import DeviceTrace
+
+    read = harness.reader("card_ms_per_frame")
+    t = DeviceTrace([("", 0, 3_000_000), ("", 2_000_000, 5_000_000), ("", 9_000_000, 10_000_000)],
+                    1_000_000, 20_000_000)
+    summaries = [{"frames": 2}, {"frames": 3}]
+    assert read(SimpleNamespace(trace=t, summaries=summaries)) == pytest.approx(5.0 / 5)
+    assert read(SimpleNamespace(trace=None, summaries=summaries)) is None
+    assert read(SimpleNamespace(trace=t, summaries=[])) is None
+    assert read(SimpleNamespace(trace=DeviceTrace([], 0, 10), summaries=summaries)) is None

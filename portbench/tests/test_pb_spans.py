@@ -52,6 +52,6 @@ def test_each_reader_is_listed_for_the_streaming_cell():
     for name in READERS:
         m = entries[name]
         assert (m["source"], m["better"], m["moves"], m["workloads"]) == (
-            "program_span", "lower", "render_fps", ["h4b_1440p60.streaming"])
+            "program_span", "lower", "card_ms_per_frame", ["h4b_1440p60.streaming"])
     plan = harness.cell_plan(bench, "h4b_1440p60.streaming")
     assert set(READERS) <= {m["name"] for m in plan.per_layer}
