@@ -6,7 +6,9 @@ CPU at a small synthetic size. Checked: the writer thread's ``readback``
 and ``sink`` for each frame written, the feed's ``upload`` and the
 consumer's ``feed-wait`` for each frame pulled, one ``open`` a phase and
 one ``save`` a saved trajectory, the trackers' parts nested in the
-caller's ``track``, the report's grouping by thread and parent, and the
+caller's ``track``, the two-phase render's ``phase-analyse`` and
+``phase-encode`` around their phases' stages, the report's grouping by
+thread and parent, and the
 ``--trace DIR`` Chrome trace holding the stages."""
 
 import contextlib
@@ -130,6 +132,79 @@ def test_two_phase_records_every_thread(tmp_path):
     (_, _, s0, _), (_, _, s1, _) = prof.of("open")
     (_, _, save, _), = prof.of("save")
     assert s0 < save < s1
+
+
+PHASE_SRC = "synthetic://shaky?w=128&h=96&n=10&seed=5&shake=0.004&pan=0.0"
+PHASES = {"phase-analyse": ("open", "track", "collect", "save"),
+          "phase-encode": ("open", "warp", "encode")}
+
+
+def inside(span, parent, prof):
+    """``span`` lies inside one of ``parent``'s spans, on its thread."""
+    _, t, s, e = span
+    return any(pt == t and ps <= s and e <= pe for _, pt, ps, pe in prof.of(parent))
+
+
+@pytest.mark.parametrize("job,opened", [
+    ({}, ("phase-analyse", "phase-encode")),
+    ({"analyse_only": True}, ("phase-analyse",)),
+    ({"encode_only": True}, ("phase-encode",)),
+    ({"streaming": True}, ()),
+], ids=["two-phase", "analyse-only", "encode-only", "streaming"])
+def test_phase_spans_open_once_a_job(tmp_path, job, opened):
+    """Two jobs into one profiler: each phase the job runs opens once a
+    job, on the caller's thread, around that phase's stages."""
+    prof = Recorder()
+    for k in range(2):
+        dest = str(tmp_path / f"job{k}.y4m")
+        if job.get("encode_only"):
+            trender.render(PHASE_SRC, dest, options(analyse_only=True), device="cpu")
+        trender.render(PHASE_SRC, dest, options(analysis_mode="paired", analysis_chunk=4, **job),
+                       profiler=prof, device="cpu")
+    main = threading.current_thread().name
+    assert {n for n, _, _, _ in prof.spans if n.startswith("phase-")} == set(opened)
+    for phase in opened:
+        assert len(prof.of(phase)) == 2 and prof.threads(phase) == {main}
+        for name in PHASES[phase]:
+            assert any(inside(sp, phase, prof) for sp in prof.of(name)), (phase, name)
+    # Every stage of the render thread but the phases lies inside a phase.
+    for sp in prof.spans:
+        if opened and sp[1] == main and not sp[0].startswith("phase-"):
+            assert any(inside(sp, phase, prof) for phase in opened), sp[0]
+    if len(opened) == 2:  # the analyse ends before the encode starts
+        assert prof.of("phase-analyse")[0][3] <= prof.of("phase-encode")[0][2]
+
+
+def test_report_shares_skip_phases_run_once():
+    """A single render's phases have only warm-up samples: the shares of
+    the pipeline are those of the stages inside them; with more runs than
+    the warm-up, those of the phases."""
+    prof = StageProfiler(warmup=3)
+
+    def job():
+        with prof.stage("phase-analyse"):
+            for _ in range(5):
+                with prof.stage("track"):
+                    time.sleep(0.001)
+        with prof.stage("phase-encode"):
+            for _ in range(5):
+                with prof.stage("warp"):
+                    time.sleep(0.002)
+
+    def shares():
+        lines = {line.split(":")[0].strip(): line for line in prof.report().splitlines()}
+        return {n: float(line.rsplit(",", 1)[1].split("%")[0])
+                for n, line in lines.items() if "% of pipeline" in line}
+
+    job()
+    assert "phase-analyse: (warmup only)" in prof.report()
+    got = shares()
+    assert set(got) == {"track", "warp"} and abs(sum(got.values()) - 100.0) < 0.2
+    for _ in range(3):
+        job()
+    got = shares()
+    assert set(got) == {"phase-analyse", "phase-encode"}
+    assert abs(sum(got.values()) - 100.0) < 0.2
 
 
 @pytest.mark.parametrize("streaming", [False, True])

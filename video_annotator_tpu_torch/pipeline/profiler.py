@@ -33,7 +33,9 @@ class StageProfiler:
     starts is its parent (a thread-local stack), and its self time is its
     time less its children's. A render's stages, by thread:
 
-    - the caller's thread: ``open`` (a phase's set-up, from opening the
+    - the caller's thread: ``phase-analyse`` and ``phase-encode`` (the
+      two-phase render's phases, each around the stages below that it
+      runs), ``open`` (a phase's set-up, from opening the
       source to the first pull of its loop), ``feed-wait`` (a pull from
       :class:`~video_annotator_tpu_torch.io.prefetch.DevicePrefetcher`),
       ``track`` (the analyse; the trackers' ``detect``, ``stage``, ``lk``,
@@ -137,13 +139,16 @@ class StageProfiler:
 
         Steady-state only (first ``warmup`` samples per stage excluded);
         the share of the pipeline is of the profiler's own thread's
-        outermost stages, and their warmup/compile time is summarized on
-        the last line.
+        outermost stages with steady samples (those inside the phases
+        where a render ran each phase ``warmup`` times or fewer), and
+        their warmup/compile time is summarized on the last line.
         """
         with self._lock:
             nodes = [(k, list(v)) for k, v in self._nodes.items()]
             counters = list(self._counters.items())
-        top = [v for (thread, path), v in nodes if thread == self._owner and len(path) == 1]
+        owned = [(path, v) for (thread, path), v in nodes if thread == self._owner]
+        depth = min((len(path) for path, v in owned if v[3]), default=1)
+        top = [v for path, v in owned if len(path) == depth]
         total = sum(v[1] for v in top) or 1e-12
         threads = sorted(dict.fromkeys(t for (t, _), _ in nodes + counters),
                          key=lambda t: t != self._owner)
@@ -161,7 +166,7 @@ class StageProfiler:
                     fps = n / secs if secs > 0 else float("inf")
                     line = (f"{pad}{path[-1]}: avg {ms:8.2f} ms/frame ({fps:7.1f} fps), "
                             f"self {self_s / n * 1000.0:8.2f} ms")
-                    if t == self._owner and len(path) == 1:
+                    if t == self._owner and len(path) == depth:
                         line += f", {secs / total * 100:5.1f}% of pipeline"
                     lines.append(line)
                 emit(thread, path)

@@ -1742,7 +1742,12 @@ def render(source: str, dest: Optional[str],
            profiler: Optional[StageProfiler] = None, device="cuda") -> None:
     """Two-phase render with trajectory checkpoint/resume (``<dest>.traj.npz``),
     or the single-pass ``--streaming`` render. ``--gyro`` takes the
-    two-phase path even with ``--streaming``: its analyse decodes nothing."""
+    two-phase path even with ``--streaming``: its analyse decodes nothing.
+
+    On the caller's thread the two-phase path opens ``phase-analyse``
+    (the analyse and the trajectory's save) and ``phase-encode`` (the
+    encode), each once per call, around the stages of that phase; the
+    streaming path opens neither."""
     options = options or RenderOptions()
     prof = profiler or StageProfiler()
     family = check_family(options)
@@ -1757,10 +1762,11 @@ def render(source: str, dest: Optional[str],
     needs_motion = options.stabilise != "none" or options.horizon_lock
     tpath = trajectory_path(dest) if dest else None
     if needs_motion and not options.encode_only:
-        traj = _analyse_family(family, source, options, prof, device)
-        if tpath:
-            with prof.stage("save"):
-                traj.save(tpath)
+        with prof.stage("phase-analyse"):
+            traj = _analyse_family(family, source, options, prof, device)
+            if tpath:
+                with prof.stage("save"):
+                    traj.save(tpath)
     elif needs_motion:
         if not (tpath and os.path.exists(tpath)):
             raise FileNotFoundError(
@@ -1779,9 +1785,10 @@ def render(source: str, dest: Optional[str],
                           kind=kind, fps=meta.fps, width=meta.width,
                           height=meta.height, source=source)
     if not options.analyse_only:
-        if traj.kind == "so3":
-            encode(source, dest, traj, options, prof, device=device)
-        else:
-            encode_2d(source, dest, traj, options, prof, device=device)
+        with prof.stage("phase-encode"):
+            if traj.kind == "so3":
+                encode(source, dest, traj, options, prof, device=device)
+            else:
+                encode_2d(source, dest, traj, options, prof, device=device)
     if options.verbose:
         print(prof.report())
