@@ -22,7 +22,11 @@ the last line is printed):
    mode over identity pinhole cameras with a similarity matrix (0
    differing values from its plain version, and held within one count of
    ``warp_similarity``); K3 and K2's pairs form on one 17-frame LK
-   chunk at 1920x1440 with 200 corners per frame; K2's per-frame form on
+   chunk at 1920x1440 with 200 corners per frame; the pyramid kernel
+   (``csrc/pyramid.cu``) on the cells' 17-frame chunks, 1920x1440
+   integers and 1920x1080 quarters, at levels 1 and 2 (0 differing values
+   from its plain twin, and from the two banded ``torch.matmul`` products
+   where those are exact), timed beside both; K2's per-frame form on
    one 4K pair box-downsampled to 1920x1440 with the tracker's 200
    corners, K2's level 0 timed over 100 launches queued behind a
    sleeping kernel. K1's per-tile-row rotation mode (the rolling-shutter
@@ -242,7 +246,7 @@ from video_annotator_tpu_torch.io.synthetic import (
 )
 from video_annotator_tpu_torch.io.video import open_reader, open_writer
 from video_annotator_tpu_torch.models import deshake, similarity
-from video_annotator_tpu_torch.ops import cuda_lib, lk_kernel, roofline_kernel, stage, warp_kernel
+from video_annotator_tpu_torch.ops import cuda_lib, lk, lk_kernel, roofline_kernel, stage, warp_kernel
 from video_annotator_tpu_torch.ops.corners import detect_corners
 from video_annotator_tpu_torch.ops.affine import fit_similarity
 from video_annotator_tpu_torch.ops.lk import build_pyramid
@@ -346,6 +350,7 @@ MODE_CASES = (
     ("bicubic", "stereographic", True, ("warp_luma", "warp_chroma"), (True,)),
 )
 STAGE_OPS = 3
+PYR_OPS = 30  # float32 operations an output of the pyramid kernel: 10 + 5 fmaf
 # The parallel layer (rows 6 and 9): STREAMS 4K streams on one card (the
 # README's 8 x 4K60 batch), the variants its phase launches, the rank
 # counts of the spatial warp's bands (3 clamps: 440 tile rows).
@@ -1003,6 +1008,45 @@ def phase_stage_lk(dev, results):
 
 def tracked_options(**kw):
     return stock_options(analysis_mode="tracked", **kw)
+
+
+def phase_pyramid(dev, results):
+    """The pyramid kernel on the paired analyse's 17-frame chunks: the
+    1440p cell's (1920x1440 integers) and the 4K cell's (1920x1080
+    quarters, ``box_downsample`` of 3840x2160), levels 1 and 2. Every
+    launch equals its plain twin; both levels of the integer chunk and
+    level 1 of the quarter chunk equal the banded ``torch.matmul``
+    products (``library_ms``), whose second product at the quarter
+    chunk's level 2 may round otherwise (logged)."""
+    g = torch.Generator(dev).manual_seed(21)
+    for kind, (h, w) in (("integer", (1440, 1920)), ("quarter", (1080, 1920))):
+        if kind == "integer":
+            img = torch.randint(0, 256, (LK_CHUNK, h, w), generator=g, device=dev).float()
+        else:
+            big = torch.randint(0, 256, (LK_CHUNK, 2 * h, 2 * w), generator=g, device=dev)
+            img = box_downsample(big.float(), 1)
+        for level in (1, 2):
+            out = lk.pyr_down(img)
+            banded = lk.pyr_down_banded(img)
+            torch.cuda.synchronize()
+            check(torch.equal(out, lk.pyr_down_plain(img)),
+                  f"pyramid kernel differs from its plain twin ({kind}, level {level})")
+            differ = int((out != banded).sum())
+            if kind == "integer" or level == 1:
+                check(differ == 0, f"pyramid kernel differs from torch.matmul ({kind}, level {level})")
+            ms = cuda_ms(lambda: lk.pyr_down(img), 20)
+            plain_ms = cuda_ms(lambda: lk.pyr_down_plain(img), 3, 1)
+            library_ms = cuda_ms(lambda: lk.pyr_down_banded(img), 20)
+            b = bound((img.numel() + out.numel()) * 4, out.numel() * PYR_OPS)
+            log(f"[pyramid] {kind} {tuple(img.shape)} -> {tuple(out.shape)}: {differ} of "
+                f"{out.numel()} values differ from torch.matmul "
+                f"(max {float((out - banded).abs().max()):.3g}); kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.3f} ms, torch.matmul {library_ms:.4f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            if kind == "integer" and level == 1:
+                results["pyr_down"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                           library_ms=library_ms, **b)
+            img = out
 
 
 def phase_lk_frame(dev, results):
@@ -3066,6 +3110,7 @@ def main(argv=None) -> int:
     phase_warp_rs(dev, results)
     phase_warp_modes(dev, results)
     phase_stage_lk(dev, results)
+    phase_pyramid(dev, results)
     phase_lk_frame(dev, results)
     phase_warp_parallel(dev, results)
     roof_launches = phase_roofline(dev, results, label)
@@ -3103,7 +3148,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches.get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"),
             **{key: r[key] for key in PLAIN_LABELS if key in r},
         })
     print(json.dumps({"kernels": kernels}))

@@ -25,8 +25,8 @@ from video_annotator_tpu_torch.models.similarity import (
     SimilarityWarper,
     warp_frame_similarity,
 )
-from video_annotator_tpu_torch.ops import lk_kernel, roofline_kernel, stage, warp_kernel
-from video_annotator_tpu_torch.ops.warp_plain import scaled_camera
+from video_annotator_tpu_torch.ops import lk, lk_kernel, roofline_kernel, stage, warp_kernel
+from video_annotator_tpu_torch.ops.warp_plain import box_downsample, scaled_camera
 from video_annotator_tpu_torch.pipeline import render as trender
 from video_annotator_tpu_torch.pipeline.trajectory import Trajectory
 from video_annotator_tpu_torch.tools import roofline
@@ -314,6 +314,85 @@ def test_lk_level_frame_kernel_matches_plain(cuda):
     assert lk_kernel.LK_LEVEL_FRAME.launches - before == sum(p is not None for p in prev)
     flow = (new_pts - pts)[status].median(dim=0).values.cpu()
     assert torch.allclose(flow, torch.tensor([2.25, -1.5]), atol=0.1)
+
+
+@pytest.mark.parametrize("shape", [(17, 1440, 1920), (3, 61, 83), (2, 2, 30, 17), (5, 2, 7),
+                                   (4, 3, 10), (1, 2, 2), (2, 200, 300), (3, 1, 9), (0, 8, 8)])
+def test_pyr_down_kernel_matches_plain(cuda, shape):
+    """The pyramid kernel against its plain twin on random floats, bit for
+    bit, in one launch; none where the level below is empty."""
+    g = torch.Generator(cuda).manual_seed(sum(shape))
+    img = torch.randn(shape, generator=g, device=cuda) * 60 + 100
+    before = lk.PYR_DOWN.launches
+    got = lk.pyr_down(img)
+    want = lk.pyr_down_plain(img)
+    torch.cuda.synchronize()
+    assert got.shape == (*shape[:-2], shape[-2] // 2, shape[-1] // 2)
+    assert lk.PYR_DOWN.launches - before == int(got.numel() > 0)
+    assert torch.equal(got, want)
+
+
+def pyramid_chunk(kind: str, h: int, w: int, cuda, t: int = 17) -> torch.Tensor:
+    """A chunk's level 0 as the cells' trackers hold it: integers (1440p,
+    tracked at full size) or quarters (4K, ``box_downsample`` to level 1)."""
+    g = torch.Generator(cuda).manual_seed(h + w)
+    if kind == "integer":
+        return torch.randint(0, 256, (t, h, w), generator=g, device=cuda).to(torch.float32)
+    big = torch.randint(0, 256, (t, 2 * h, 2 * w), generator=g, device=cuda)
+    return box_downsample(big.to(torch.float32), 1)
+
+
+def test_pyr_down_kernel_is_the_banded_products_at_the_cells_shapes(cuda, record_property):
+    """At the cells' chunks the kernel gives the card's ``torch.matmul``
+    form bit for bit where that is exact: levels 1 and 2 of a 1920x1440
+    integer chunk, level 1 of a 1920x1080 quarter chunk. Level 2 of the
+    quarter chunk (steps of 2^-18 in the second product) may round
+    otherwise: its differing floats and K3-staged bytes are recorded, and
+    no staged byte may move by more than one count."""
+    for kind, (h, w), exact in (("integer", (1440, 1920), 2), ("quarter", (1080, 1920), 1)):
+        got = want = pyramid_chunk(kind, h, w, cuda)
+        for level in range(1, exact + 1):
+            got, want = lk.pyr_down(got), lk.pyr_down_banded(want)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"{kind} level {level}"
+    got, want = lk.pyr_down(got), lk.pyr_down_banded(want)
+    staged = [stage.stage_u8(x, slack=lk_kernel.SLACK_ROWS).to(torch.int16) for x in (got, want)]
+    torch.cuda.synchronize()
+    byte_diff = (staged[0] - staged[1]).abs()
+    found = dict(floats_differ=int((got != want).sum()), floats=got.numel(),
+                 max_float_diff=float((got - want).abs().max()),
+                 bytes_differ=int((byte_diff > 0).sum()), max_byte_diff=int(byte_diff.max()))
+    print(f"quarter chunk, level 2 against torch.matmul: {found}")
+    for key, value in found.items():
+        record_property(key, value)
+    assert found["max_byte_diff"] <= 1
+
+
+def test_pair_tracker_builds_its_pyramid_with_the_kernel(cuda, monkeypatch):
+    """One ``PairTracker`` chunk of the 1440p cell's shape launches the
+    kernel once per level above 0 and no ``torch.matmul`` pyramid; its
+    rotations equal those over the banded products' pyramid."""
+    from video_annotator_tpu_torch.io.synthetic import SyntheticSource, render_frame
+
+    cfg = SyntheticSource.from_uri("synthetic://shaky?w=1920&h=1440&n=17&seed=5").config
+    cam = cfg.camera()
+    frames = torch.stack([render_frame(cam, r)[0]
+                          for r in torch.from_numpy(cfg.rotations()).to(cuda)])
+    opts = trender.RenderOptions(stabilise="smooth", preset=CameraPreset.GOPRO_H4B_WIDE43_MEASURED)
+    tracker = trender.PairTracker(trender.VideoMeta(1920, 1440, 60, 17), opts, cuda)
+    eye = torch.eye(3, device=cuda)
+    matmuls = []
+    real_matmul = torch.matmul
+    monkeypatch.setattr(torch, "matmul", lambda *a: matmuls.append(a) or real_matmul(*a))
+    before = lk.PYR_DOWN.launches
+    got = tracker(eye, eye, 0, frames)
+    assert lk.PYR_DOWN.launches - before == lk.tracked_levels(1440, 1920) - 1 == 2
+    assert not matmuls
+    monkeypatch.setattr(lk, "pyr_down", lk.pyr_down_banded)
+    want = tracker(eye, eye, 0, frames)
+    assert lk.PYR_DOWN.launches - before == 2 and matmuls
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_tracked_streaming_render_on_card_matches_cpu(cuda, tmp_path):

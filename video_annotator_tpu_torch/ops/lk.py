@@ -2,27 +2,32 @@
 
 Port of ``video_annotator_tpu/ops/lk.py``: the cv2-default window and
 level count, the conditioning threshold, the ``pyrDown``-style 5-tap
-blur + 2x decimation as two banded matrix products, and
-:func:`pyramidal_lk`, the tracker on float frames of any size, batched
-over points (and over a leading pair axis) with gathers. Kernel K2
-(``ops/lk_kernel.py``) is the card's tracker of the analysers, with
-:func:`_lk_level` on the levels too small for its window; the choice
-between the two is :func:`resolve_lk`.
+blur + 2x decimation, and :func:`pyramidal_lk`, the tracker on float
+frames of any size, batched over points (and over a leading pair axis)
+with gathers. Kernel K2 (``ops/lk_kernel.py``) is the card's tracker of
+the analysers, with :func:`_lk_level` on the levels too small for its
+window; the choice between the two is :func:`resolve_lk`.
 
-The products run in full float32 (TF32 off): the pyramid of a
-box-downsampled uint8 frame is then exact at the first level, so the
-uint8 rounding the LK stage applies sees the same values as the JAX
-package's.
+The blur + decimation (:func:`pyr_down`) is the JAX package's two banded
+matrix products on a CPU tensor (:func:`pyr_down_banded`) and the 5-tap
+kernel ``csrc/pyramid.cu`` on a CUDA tensor, whose order of operations
+:func:`pyr_down_plain` repeats. The values are sums of k/16 steps: on a
+uint8 frame, or a box-downsampled one at the first level, every order
+gives the same exact float32, so the uint8 rounding the LK stage applies
+sees the same values as the JAX package's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 from typing import Tuple
 
 import numpy as np
 import torch
+
+from video_annotator_tpu_torch.ops import cuda_lib
 
 WIN = 21
 DEF_LEVELS = 3
@@ -53,14 +58,92 @@ def full_fp32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def pyr_down(img: torch.Tensor) -> torch.Tensor:
-    """5-tap Gaussian blur + 2x decimation of (..., H, W) float32 images."""
+PYR_DOWN = cuda_lib.CudaKernel(
+    "pyr_down", "vat_pyr_down",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    source="video_annotator_tpu_torch/csrc/pyramid.cu",
+    replaces="video_annotator_tpu/ops/lk.py:58",  # _pyr_down's two lax.dot's; no Pallas kernel
+)
+
+_TAPS = (1.0, 4.0, 6.0, 4.0, 1.0)  # x 1/16
+
+
+def pyr_down_banded(img: torch.Tensor) -> torch.Tensor:
+    """The JAX package's form of :func:`pyr_down`: ``dy @ img @ dx.T``
+    with the banded matrices of :func:`_decim_matrix`, in full float32."""
     img = img.to(torch.float32)
     h, w = img.shape[-2:]
     dy = _decim_matrix(h, img.device)
     dx = _decim_matrix(w, img.device)
     with full_fp32_matmul():
         return torch.matmul(torch.matmul(dy, img), dx.T)
+
+
+def _fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as CUDA's ``fmaf``, for finite
+    values: the product is exact in float64, the sum is rounded to odd
+    there (TwoSum's error term moves an inexact even sum one ulp toward
+    it), and one rounding of that to float32 is the correctly rounded sum
+    (Boldo and Melquiond: 53 bits is 24 + 2 or more)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    z = s - p
+    err = (p - (s - z)) + (c - z)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def _decimate_last(x: torch.Tensor) -> torch.Tensor:
+    """One pass of :func:`pyr_down_plain` along the last axis: output j
+    accumulates ``fmaf`` from 0 over the source indices 2j-2 .. 2j+2 in
+    ascending order, each with its entry of :func:`_decim_matrix` (the
+    taps outside the axis merged onto its edge) and skipped where that is
+    0, as ``csrc/pyramid.cu`` does."""
+    n = x.shape[-1]
+    out = torch.zeros((*x.shape[:-1], n // 2), dtype=torch.float32, device=x.device)
+    src0 = 2 * torch.arange(n // 2, device=x.device) - 2
+    for j in range(5):
+        s = src0 + j
+        entry = torch.full(s.shape, _TAPS[j], dtype=torch.float32, device=x.device)
+        entry = torch.where(s == 0, sum(_TAPS[:j + 1]), entry)
+        entry = torch.where(s == n - 1, sum(_TAPS[j:]), entry)
+        entry = torch.where((s < 0) | (s >= n), 0.0, entry) / 16.0
+        tap = x[..., s.clamp(0, max(n - 1, 0))]
+        out = torch.where(entry != 0, _fmaf(entry, tap, out), out)
+    return out
+
+
+def pyr_down_plain(img: torch.Tensor) -> torch.Tensor:
+    """Plain shift-and-add twin of the ``pyr_down`` kernel, its order of
+    operations exactly (the vertical pass first, rounded to float32, then
+    the horizontal one): the kernel's specification on any device."""
+    img = img.to(torch.float32)
+    vert = _decimate_last(img.transpose(-1, -2)).transpose(-1, -2)
+    return _decimate_last(vert)
+
+
+def pyr_down(img: torch.Tensor) -> torch.Tensor:
+    """5-tap Gaussian blur + 2x decimation of (..., H, W) images into
+    (..., H//2, W//2) float32: :func:`pyr_down_banded` on a CPU tensor,
+    one launch of ``csrc/pyramid.cu`` (:data:`PYR_DOWN`) on a CUDA one
+    (none for an empty output)."""
+    img = img.to(torch.float32)
+    if img.device.type == "cpu":
+        return pyr_down_banded(img)
+    cuda_lib.check_cuda(img)
+    if img.dim() < 2:
+        raise ValueError(f"pyr_down takes (..., H, W), got {tuple(img.shape)}")
+    img = img.contiguous()
+    h, w = img.shape[-2:]
+    out = torch.empty((*img.shape[:-2], h // 2, w // 2), dtype=torch.float32,
+                      device=img.device)
+    cuda_lib.check_operands(img, out)
+    if out.numel():
+        PYR_DOWN.launch(cuda_lib.ptr(img), cuda_lib.ptr(out), img.numel() // (h * w), h, w)
+    return out
 
 
 def build_pyramid(img: torch.Tensor, levels: int = DEF_LEVELS):
