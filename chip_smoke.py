@@ -299,13 +299,11 @@ FLOW_ATOL = 0.01
 TRAJ_ATOL_RAD = 1e-5
 PROFILE_FRAMES = 8
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32
-# FLOP/s outside the tensor cores. A bound is the larger of bytes / rate
-# and operations / rate for the work of one timed call.
-HBM_BYTES_PER_S = roofline.HBM_BYTES_PER_S
-FP32_OPS_PER_S = roofline.FP32_OPS_PER_S
-# Operations per item, counted from the kernels' sources (a product and a
-# sum are one each; a division, sqrtf and atanf count as one each).
+# A bound (``roofline.bound``) is the larger of bytes / rate and
+# operations / rate for the work of one timed call, at the published H100
+# SXM peaks. Operations per item, counted from the kernels' sources (a
+# product and a sum are one each; a division, sqrtf and atanf count as one
+# each).
 # K1's map per output pixel and its bilinear taps and rounding per plane:
 # tools/roofline.py, whose floor reads them too. K3's round and clamp per
 # source element; K2's template build (24 x 23 bilinear samples), Scharr
@@ -447,15 +445,7 @@ def log(msg: str = "") -> None:
 card_label = roofline.card_label  # the card's name and power limit, as nvidia-smi gives them
 cuda_ms = roofline.event_ms  # mean device ms of fn over reps calls (CUDA events)
 queued_ms = roofline.queued_ms  # the same, the calls queued behind a sleeping kernel
-
-
-def bound(nbytes: float, ops: float) -> dict:
-    """The least time the card could take for ``nbytes`` moved and
-    ``ops`` float32 operations, and which of the two binds."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    return dict(bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+bound = roofline.bound  # the least time at the published peaks, and what binds
 
 
 def warp_map_ops(in_camera) -> int:
@@ -927,11 +917,7 @@ def lk_chunk(dev):
     frames = source_lumas(dev, LK_CHUNK)
     tracker = trender.PairTracker(trender.VideoMeta(W, H, 30, FRAMES), stock_options(), dev)
     grays = box_downsample(frames.to(torch.float32), tracker.level)
-    det = box_downsample(grays[:-1], tracker.detect_level)
-    pts, valid = detect_corners(det, max_corners=trender.MAX_CORNERS,
-                                min_distance=tracker.det_md,
-                                border=tracker.det_border)
-    pts = pts * tracker.det_scale + (tracker.det_scale - 1.0) * 0.5
+    pts, valid = tracker.detect(grays[:-1])
     return grays, pts, valid
 
 
@@ -2365,18 +2351,18 @@ def phase_fidelity(dev, label):
 
 @contextlib.contextmanager
 def k2_only_levels():
-    """K2 alone, as the analysers tracked before the plain level: their
-    staging without ``plain_levels``, so that the levels K2 cannot stage
-    are None and the loops keep the coarse guess there (the JAX package's
-    Pallas loops). Only to time the analyses against it."""
-    saved = {name: getattr(trender, name) for name in ("stage_pyramid_pairs", "stage_pyramid")}
-    for name, stage in saved.items():
-        setattr(trender, name, lambda *args, stage=stage, plain_levels=False: stage(*args))
+    """K2 alone, as the analysers tracked before the plain level: the LK
+    route's staging (``lk_kernel.stage_pyramid_pairs``, which
+    ``stage_pyramid`` calls too) without ``plain_levels``, so that the
+    levels K2 cannot stage are None and the loops keep the coarse guess
+    there (the JAX package's Pallas loops). Only to time the analyses
+    against it."""
+    stage = lk_kernel.stage_pyramid_pairs
+    lk_kernel.stage_pyramid_pairs = lambda frames, levels, plain_levels=False: stage(frames, levels)
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(trender, name, fn)
+        lk_kernel.stage_pyramid_pairs = stage
 
 
 def clip_rms_deg(dev, mode: str, tmp: str) -> float:
@@ -2396,14 +2382,11 @@ def clip_analyse_fps(dev, mode: str, lumas) -> tuple:
     meta = trender.VideoMeta(640, 480, 30, len(lumas))
     opts = trender.RenderOptions(stabilise="smooth", analysis_mode=mode,
                                  preset=CameraPreset.GOPRO_H4B_WIDE43_MEASURED)
-    stacks = bench_run.paired_stacks(lumas, opts.analysis_chunk)
+    analyser = trender.Tracker if mode == "tracked" else trender.PairTracker
 
     def seconds():
         t0 = time.perf_counter()
-        if mode == "tracked":
-            bench_run.analyse_tracked(trender.Tracker(meta, opts, dev), lumas)
-        else:
-            bench_run.analyse_paired(trender.PairTracker(meta, opts, dev), stacks, len(lumas))
+        bench_run.analyse_frames(analyser(meta, opts, dev), lumas)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 

@@ -271,7 +271,7 @@ def test_cli_filter_takes_every_alias(monkeypatch):
     assert seen == list(FILTER_ALIASES)
 
 
-def test_cli_trace_is_still_not_ported(monkeypatch, tmp_path, capsys):
+def test_cli_trace_writes_the_stages_into_a_chrome_trace(monkeypatch, tmp_path, capsys):
     """``--trace DIR`` wraps the render call in a torch.profiler session
     that writes a Chrome trace into DIR and prints the JAX CLI's line;
     the render's profiler opens each stage as a range of the trace (on the CPU, with the render stubbed: the CLI needs a card to render;

@@ -379,17 +379,20 @@ def test_pair_tracker_builds_its_pyramid_with_the_kernel(cuda, monkeypatch):
     frames = torch.stack([render_frame(cam, r)[0]
                           for r in torch.from_numpy(cfg.rotations()).to(cuda)])
     opts = trender.RenderOptions(stabilise="smooth", preset=CameraPreset.GOPRO_H4B_WIDE43_MEASURED)
-    tracker = trender.PairTracker(trender.VideoMeta(1920, 1440, 60, 17), opts, cuda)
-    eye = torch.eye(3, device=cuda)
+
+    def pushed():
+        tracker = trender.PairTracker(trender.VideoMeta(1920, 1440, 60, 17), opts, cuda)
+        return torch.cat([tracker.push(f) for f in frames] + [tracker.finish()])
+
     matmuls = []
     real_matmul = torch.matmul
     monkeypatch.setattr(torch, "matmul", lambda *a: matmuls.append(a) or real_matmul(*a))
     before = lk.PYR_DOWN.launches
-    got = tracker(eye, eye, 0, frames)
+    got = pushed()
     assert lk.PYR_DOWN.launches - before == lk.tracked_levels(1440, 1920) - 1 == 2
     assert not matmuls
     monkeypatch.setattr(lk, "pyr_down", lk.pyr_down_banded)
-    want = tracker(eye, eye, 0, frames)
+    want = pushed()
     assert lk.PYR_DOWN.launches - before == 2 and matmuls
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -244,6 +244,15 @@ def test_k1_roofline_arithmetic():
         2 / 3.35e12 * 1e9)
 
 
+def test_bound_is_the_larger_of_bytes_and_operations():
+    """``chip_smoke.py``'s bound of a timed call: 3.35 GB take 1 ms, 67
+    GFLOP take 1 ms; the slower of the two binds."""
+    assert roofline.bound(3.35e9, 1e9) == pytest.approx(
+        {"bound_ms": 1.0, "bound_by": "bytes"})
+    b = roofline.bound(1e9, 2 * 67e9)
+    assert b["bound_by"] == "operations" and b["bound_ms"] == pytest.approx(2.0)
+
+
 def test_k1_map_ops_follow_the_input_camera():
     ys, rots, oc, ic, size = luma_case()
     assert roofline.map_ops(ic) == roofline.MAP_OPS_RECT + roofline.FISHEYE_OPS

@@ -23,6 +23,7 @@ import torch
 
 from video_annotator_tpu_torch import cli as tcli
 from video_annotator_tpu_torch.camera import CameraPreset
+from video_annotator_tpu_torch.ops import lk_kernel
 from video_annotator_tpu_torch.pipeline import render as trender
 from video_annotator_tpu_torch.pipeline.profiler import StageProfiler
 
@@ -110,7 +111,7 @@ def check_write_and_feed(prof, t0, t1, phases):
 @pytest.mark.parametrize("lk", ["plain", "kernel"])
 def test_streaming_paired_records_every_thread(tmp_path, monkeypatch, lk):
     """``kernel``: K2's branch through its plain twin, with K3's staging."""
-    monkeypatch.setattr(trender, "resolve_lk", lambda device: lk)
+    monkeypatch.setattr(lk_kernel, "resolve_lk", lambda device: lk)
     prof, t0, t1 = rendered(tmp_path, streaming=True, analysis_mode="paired",
                             analysis_chunk=5)
     check_write_and_feed(prof, t0, t1, phases=1)

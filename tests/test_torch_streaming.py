@@ -148,9 +148,8 @@ def test_streaming_kalman_end_to_end(tmp_path):
 
 def replay_analyser(rotations: np.ndarray):
     """A stand-in for both of the ring's analysers that hands back the
-    given (T, 3, 3) measured rotations: per frame through ``push``
-    (tracked), per chunk of pairs through ``__call__`` (paired), indexed
-    by the global pair index the ring passes, the padded tail clamped."""
+    given (T, 3, 3) measured rotations through their interface: one a
+    frame from ``push``, none from ``finish``."""
     r = torch.from_numpy(np.asarray(rotations, np.float32))
 
     class Replay:
@@ -159,11 +158,10 @@ def replay_analyser(rotations: np.ndarray):
 
         def push(self, frame):
             self.n += 1
-            return r[self.n - 1]
+            return r[self.n - 1:self.n]
 
-        def __call__(self, r_base, prev_delta, offset, frames):
-            idx = torch.arange(offset + 1, offset + frames.shape[0]).clamp(max=len(r) - 1)
-            return r[idx[-1]], prev_delta, r[idx]
+        def finish(self):
+            return r[:0]
 
     return Replay
 

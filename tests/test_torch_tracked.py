@@ -40,15 +40,13 @@ K2_MIN_STATUS_AGREEMENT = 0.97
 
 @pytest.fixture
 def k2_branch(monkeypatch):
-    """The analysers' card branch on the CPU: every caller of
-    ``resolve_lk`` (the trackers, the similarity analyser and the
-    parallel pipeline's ``track_pairs``) gets K2, whose plain twin runs
-    on CPU tensors."""
-    from video_annotator_tpu_torch.models import similarity
-    from video_annotator_tpu_torch.parallel import pipeline
+    """The analysers' card branch on the CPU: the LK route
+    (``lk_kernel.LKRoute``, which the trackers, the similarity analyser
+    and the parallel pipeline's ``track_pairs`` all take) resolves to K2,
+    whose plain twin runs on CPU tensors."""
+    from video_annotator_tpu_torch.ops import lk_kernel
 
-    for module in (trender, similarity, pipeline):
-        monkeypatch.setattr(module, "resolve_lk", lambda device: "kernel")
+    monkeypatch.setattr(lk_kernel, "resolve_lk", lambda device: "kernel")
 
 
 def luma_frames(src):
@@ -118,13 +116,13 @@ def test_tracked_step_matches_jax_track_step(refresh_age):
     tracker, state = check_tracked_step(refresh_age, FLOW_ATOL, MIN_STATUS_AGREEMENT)
     # The plain LK stages no pyramid (the JAX package's CPU carry is the
     # frame alone too).
-    assert tracker.lk == "plain" and state[1] == ()
+    assert tracker.lk.name == "plain" and state[1] == ()
 
 
 @pytest.mark.parametrize("refresh_age", [False, True])
 def test_k2_tracked_step_matches_jax_track_step(k2_branch, refresh_age):
     tracker, state = check_tracked_step(refresh_age, K2_FLOW_ATOL, K2_MIN_STATUS_AGREEMENT)
-    assert tracker.lk == "kernel" and state[1][0].shape[-2:] == (480 + 32, 640)
+    assert tracker.lk.name == "kernel" and state[1][0].shape[-2:] == (480 + 32, 640)
 
 
 def test_tracked_step_refreshes_when_too_few_points_survive():

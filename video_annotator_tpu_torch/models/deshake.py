@@ -17,12 +17,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from video_annotator_tpu_torch.io.prefetch import DevicePrefetcher
 from video_annotator_tpu_torch.ops.lk import full_fp32_matmul
 from video_annotator_tpu_torch.ops.phasecorr import phase_correlate
 from video_annotator_tpu_torch.ops.warp_plain import box_downsample
 from video_annotator_tpu_torch.pipeline.profiler import StageProfiler
-from video_annotator_tpu_torch.pipeline.render import analysis_level, open_trimmed
+from video_annotator_tpu_torch.pipeline.render import (
+    TrimmedFrames,
+    analysis_level,
+    open_trimmed,
+)
 from video_annotator_tpu_torch.pipeline.trajectory import Trajectory
 from video_annotator_tpu_torch.smoothing.savgol import savgol_weights, sg_conv
 
@@ -54,16 +57,8 @@ def analyse_deshake(source: str, options,
     prev_d = torch.zeros(2, dtype=torch.float32, device=dev)
     out = []
     prev_small = d_max = None
-    idx = reader.start_frame - 1
-    pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
-                           depth=options.prefetch_depth, device=dev, profiler=prof)
-    try:
-        for y, _, _ in pre:
-            idx += 1
-            if idx < first:
-                continue
-            if idx >= last:
-                break
+    with TrimmedFrames(reader, first, last, options, dev, prof) as frames:
+        for y, _, _ in frames:
             small = box_downsample(y.to(torch.float32), level)
             if prev_small is not None:
                 with prof.stage("track"):
@@ -78,9 +73,6 @@ def analyse_deshake(source: str, options,
                     acc = acc + prev_d
             prev_small = small
             out.append(acc)
-    finally:
-        pre.close()
-        reader.close()
     with prof.stage("collect"):
         params_np = (torch.stack(out).cpu().numpy().astype(np.float64)
                      if out else np.zeros((0, 2)))

@@ -6,11 +6,13 @@ encoding smooths the accumulated ``(dx, dy, angle, log_scale)``
 trajectory with the Savitzky-Golay kernel the rotation family uses and
 warps with the inverse correction.
 
-The analyser tracks as ``pipeline/render.py::Tracker`` does: on a card it
-carries each frame's pyramid (kernel K3 stages the levels K2 can track)
-and tracks with K2's per-frame form and the plain level on the others,
-on the CPU it tracks the float frames with the plain ``pyramidal_lk``;
-its key-frame rule reads the status count on the host once per frame. On a
+The analyser tracks as ``pipeline/render.py::Tracker`` does, through the
+one-pair form of the device's LK route (``ops/lk_kernel.py::LKRoute``):
+on a card it carries each frame's pyramid (kernel K3 stages the levels K2
+can track) and tracks with K2's per-frame form and the plain level on the
+others, on the CPU it tracks the float frames with the plain
+``pyramidal_lk``; its key-frame rule reads the status count on the host
+once per frame. On a
 card the warp is kernel K1 over identity pinhole cameras
 (:class:`SimilarityWarper`); on the CPU it is
 :func:`warp_frame_similarity`.
@@ -24,7 +26,6 @@ import numpy as np
 import torch
 
 from video_annotator_tpu_torch.camera import Camera, CameraModel
-from video_annotator_tpu_torch.io.prefetch import DevicePrefetcher
 from video_annotator_tpu_torch.ops import warp_kernel
 from video_annotator_tpu_torch.ops.affine import (
     compose_similarity,
@@ -34,13 +35,13 @@ from video_annotator_tpu_torch.ops.affine import (
     warp_similarity,
 )
 from video_annotator_tpu_torch.ops.corners import detect_corners
-from video_annotator_tpu_torch.ops.lk import DEF_ITERS, pyramidal_lk, resolve_lk
-from video_annotator_tpu_torch.ops.lk_kernel import pyramidal_lk_packed, stage_pyramid
+from video_annotator_tpu_torch.ops.lk_kernel import LKRoute
 from video_annotator_tpu_torch.ops.warp_plain import box_downsample
 from video_annotator_tpu_torch.pipeline.profiler import StageProfiler
 from video_annotator_tpu_torch.pipeline.render import (
     KEY_FRAME_MAX_AGE,
     MAX_CORNERS,
+    TrimmedFrames,
     analysis_level,
     open_trimmed,
     tracking_border,
@@ -60,7 +61,7 @@ def analyse_similarity(source: str, options,
     unchanged), applied once at collect time."""
     prof = profiler or StageProfiler()
     dev = torch.device(device)
-    kernel = resolve_lk(dev) == "kernel"
+    lk = LKRoute(dev)
     reader, meta, first, last = open_trimmed(source, options, dev)
     level = analysis_level(options, meta)
     track_w = meta.width >> level
@@ -74,31 +75,18 @@ def analyse_similarity(source: str, options,
     acc = torch.zeros(4, dtype=torch.float32, device=dev)
     prev_params = torch.zeros(4, dtype=torch.float32, device=dev)
     out = []
-    gray_prev = staged_prev = pts = valid = None
+    prev = pts = valid = None
     age = 0
-    idx = reader.start_frame - 1
-    pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
-                           depth=options.prefetch_depth, device=dev, profiler=prof)
-    try:
-        for y, _, _ in pre:
-            idx += 1
-            if idx < first:
-                continue
-            if idx >= last:
-                break
+    with TrimmedFrames(reader, first, last, options, dev, prof) as frames:
+        for y, _, _ in frames:
             gray = box_downsample(y.to(torch.float32), level)
-            staged = stage_pyramid(gray, plain_levels=True) if kernel else ()
-            if gray_prev is None:
+            pyramid = lk.stage(gray)
+            if prev is None:
                 with prof.stage("detect"):
                     pts, valid = detect(gray)
             else:
                 with prof.stage("track"):
-                    if kernel:
-                        new_pts, status = pyramidal_lk_packed(
-                            staged_prev, staged, tuple(gray.shape), pts, valid,
-                            DEF_ITERS)
-                    else:
-                        new_pts, status = pyramidal_lk(gray_prev, gray, pts, valid)
+                    new_pts, status = lk.track(prev, pyramid, pts, valid)
                     params, inliers = fit_similarity(pts, new_pts, status)
                     prev_params = torch.where(inliers >= min_inliers, params,
                                               prev_params)
@@ -110,11 +98,8 @@ def analyse_similarity(source: str, options,
                         refresh = int(status.sum()) < min_refresh
                     pts, valid = detect(gray) if refresh else (new_pts, status)
                 age = 0 if age >= KEY_FRAME_MAX_AGE else age + 1
-            gray_prev, staged_prev = gray, staged
+            prev = pyramid
             out.append(acc)
-    finally:
-        pre.close()
-        reader.close()
     with prof.stage("collect"):
         params_np = (torch.stack(out).cpu().numpy().astype(np.float64)
                      if out else np.zeros((0, 4)))

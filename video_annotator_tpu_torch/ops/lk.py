@@ -160,7 +160,7 @@ def resolve_lk(device) -> str:
     package's rule for its Pallas and XLA trackers. Both track the levels
     of :func:`tracked_levels`: ``"kernel"`` runs K2 on the uint8-staged
     levels of at least 256 x 112 px and :func:`_lk_level` on the others
-    (``ops/lk_kernel.py``, staged with ``plain_levels``), where the JAX
+    (``ops/lk_kernel.py::LKRoute``, the rule's one caller), where the JAX
     package's Pallas tracker keeps the coarse guess."""
     return "kernel" if torch.device(device).type == "cuda" else "plain"
 

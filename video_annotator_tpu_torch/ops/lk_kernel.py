@@ -19,7 +19,8 @@ analysers stage with ``plain_levels=True`` instead: every level cv2's rule
 keeps (``ops/lk.py::tracked_levels``, the JAX package's XLA LK), staged
 for K2 where it can be and kept as its float level where it cannot, which
 the same loops track with the plain level (``ops/lk.py::_lk_level``),
-counted in :data:`PLAIN_LEVEL`.
+counted in :data:`PLAIN_LEVEL`. :class:`LKRoute` is the analysers' one
+way in: it chooses between that route and the plain LK by the device.
 
 Levels are staged by K3 into (T, H', W') uint8 stacks (rounded half to
 even, padded to 32 rows / 128 columns, 32 slack rows of the last 4-row
@@ -36,6 +37,7 @@ On CPU tensors :func:`lk_level` and :func:`lk_level_frame` run
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional, Sequence, Tuple
 
@@ -49,6 +51,8 @@ from video_annotator_tpu_torch.ops.lk import (
     WIN,
     _lk_level,
     build_pyramid,
+    pyramidal_lk,
+    resolve_lk,
     tracked_levels,
 )
 from video_annotator_tpu_torch.ops.stage import stage_u8, stage_u8_plain
@@ -433,3 +437,56 @@ def pyramidal_lk_plain(frame: torch.Tensor, next_frame: torch.Tensor, points: to
         status = status & (out[:, 2] > 0.5) & ok_windows
     new_pts = pts + flow
     return new_pts, status & _in_bounds(pts, new_pts, h, w)
+
+
+class LKRoute:
+    """The analysers' pyramidal LK on ``device``, chosen once by
+    :func:`~video_annotator_tpu_torch.ops.lk.resolve_lk`, as the JAX package
+    picks its Pallas or XLA tracker.
+
+    ``"kernel"`` (a CUDA device): K3 stages every level of
+    ``tracked_levels`` (``plain_levels=True``) and K2 tracks them, the
+    plain level where K2's window does not fit. ``"plain"``: nothing is
+    staged and the plain ``pyramidal_lk`` tracks the float frames. Both
+    track ``levels`` levels with ``iters`` Newton iterations.
+
+    A pyramid is ``(gray, staged)``: the float frame, or the chunk's
+    frames, and K3's levels (``()`` on the plain route). :meth:`stage` and
+    :meth:`track` are the one-pair form, :meth:`stage_pairs` and
+    :meth:`track_pairs` the chunk-of-pairs form."""
+
+    def __init__(self, device, levels: int = DEF_LEVELS, iters: int = DEF_ITERS):
+        self.name = resolve_lk(device)
+        self.levels = levels
+        self.iters = int(iters)
+
+    def stage(self, gray: torch.Tensor):
+        """The pyramid of one (H, W) float frame."""
+        if self.name != "kernel":
+            return gray, ()
+        return gray, stage_pyramid(gray, self.levels, plain_levels=True)
+
+    def track(self, prev, nxt, points: torch.Tensor, valid: torch.Tensor):
+        """(N, 2) level-0 ``points`` from the frame of pyramid ``prev`` into
+        that of ``nxt``: ``(new_points (N, 2), status (N,))``."""
+        if self.name != "kernel":
+            return pyramidal_lk(prev[0], nxt[0], points, valid, self.levels, self.iters)
+        return pyramidal_lk_packed(prev[1], nxt[1], tuple(nxt[0].shape), points, valid,
+                                   self.iters)
+
+    def stage_pairs(self, grays: torch.Tensor, profiler=None):
+        """The pyramid of a (P + 1, H, W) float chunk; K3's staging is timed
+        in ``profiler``'s ``stage`` span where one is given (the plain route
+        stages nothing and opens none)."""
+        if self.name != "kernel":
+            return grays, ()
+        with profiler.stage("stage") if profiler is not None else contextlib.nullcontext():
+            return grays, stage_pyramid_pairs(grays, self.levels, plain_levels=True)
+
+    def track_pairs(self, staged, points: torch.Tensor, valid: torch.Tensor):
+        """(P, N, 2) level-0 ``points`` of each frame p of the chunk of
+        pyramid ``staged`` into frame p + 1: ``(new_points, status (P, N))``."""
+        grays, levels = staged
+        if self.name != "kernel":
+            return pyramidal_lk(grays[:-1], grays[1:], points, valid, self.levels, self.iters)
+        return pyramidal_lk_pairs(levels, tuple(grays.shape[-2:]), points, valid, self.iters)

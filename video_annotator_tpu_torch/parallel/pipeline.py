@@ -7,8 +7,8 @@ output rows are split over ``space``. The step, per rank:
 
 1. tracking: corners on each frame's predecessor, pyramidal LK (on a
    card kernel K2's pairs form on the levels it can stage and the plain
-   level on the others, the plain ``pyramidal_lk`` on the CPU, as
-   :func:`track_pairs` resolves it), RANSAC per pair. The predecessor of
+   level on the others, the plain ``pyramidal_lk`` on the CPU: the
+   analysers' route, ``ops/lk_kernel.py::LKRoute``), RANSAC per pair. The predecessor of
    a block's first frame is the last frame of the left time neighbour (a
    one-frame halo); the global first frame is tracked against itself. The
    RANSAC samples of a pair come from a generator seeded by its global
@@ -31,8 +31,7 @@ from video_annotator_tpu_torch import so3
 from video_annotator_tpu_torch.camera import Camera
 from video_annotator_tpu_torch.ops import warp_kernel
 from video_annotator_tpu_torch.ops.corners import detect_corners
-from video_annotator_tpu_torch.ops.lk import pyramidal_lk, resolve_lk
-from video_annotator_tpu_torch.ops.lk_kernel import pyramidal_lk_pairs, stage_pyramid_pairs
+from video_annotator_tpu_torch.ops.lk_kernel import LKRoute
 from video_annotator_tpu_torch.ops.ransac import estimate_rotation, sample_pairs
 from video_annotator_tpu_torch.parallel.mesh import axis_size, neighbour_exchange
 from video_annotator_tpu_torch.parallel.temporal import distributed_accumulate_rotations, halo_pad
@@ -69,13 +68,8 @@ def track_pairs(seq: torch.Tensor, in_camera: Camera, max_corners: int):
     next: ``(pts, new_pts, status)`` of (T, N, 2), (T, N, 2), (T, N)."""
     pts, valid = detect_corners(seq[:-1], max_corners=max_corners,
                                 min_distance=MIN_DISTANCE, border=BORDER)
-    if resolve_lk(seq.device) == "kernel":
-        staged = stage_pyramid_pairs(seq, LK_LEVELS, plain_levels=True)
-        new_pts, status = pyramidal_lk_pairs(staged, tuple(seq.shape[-2:]), pts, valid,
-                                             iters=LK_ITERS)
-    else:
-        new_pts, status = pyramidal_lk(seq[:-1], seq[1:], pts, valid, levels=LK_LEVELS,
-                                       iters=LK_ITERS)
+    lk = LKRoute(seq.device, LK_LEVELS, LK_ITERS)
+    new_pts, status = lk.track_pairs(lk.stage_pairs(seq), pts, valid)
     return pts, new_pts, status
 
 

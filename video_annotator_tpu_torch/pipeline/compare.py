@@ -33,7 +33,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from video_annotator_tpu_torch.io.prefetch import AsyncFrameWriter, DevicePrefetcher
+from video_annotator_tpu_torch.io.prefetch import AsyncFrameWriter
 from video_annotator_tpu_torch.io.video import VideoMeta, open_reader, open_writer
 from video_annotator_tpu_torch.models import FILTER_ALIASES
 from video_annotator_tpu_torch.models.deshake import (
@@ -53,6 +53,7 @@ from video_annotator_tpu_torch.pipeline.render import (
     CropSink,
     FrameWarper,
     RenderOptions,
+    TrimmedFrames,
     analyse,
     apply_crop_rect,
     build_cameras,
@@ -281,45 +282,36 @@ def render_compare(source: str, dest: Optional[str], modes: Sequence[str],
 
     # The trim window is honoured as the analysers do: corrections index
     # from its first frame, to which the reader was opened.
-    pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
-                           depth=options.prefetch_depth, device=dev, profiler=prof)
     t = 0
-    idx = reader.start_frame - 1
     prog = Progress("compare", total=num_frames)
     try:
-        for planes_u8 in pre:
-            idx += 1
-            if idx < first:
-                continue
-            if t >= num_frames:
-                break
-            with prof.stage("warp"):
-                planes_f32 = tuple(p.to(torch.float32) for p in planes_u8)
-                cells = [warp_cell(fam, corr[t], planes_u8, planes_f32)
-                         for fam, corr in per_mode]
-                ys, us, vs = zip(*cells)
-                luma = _tile(ys, rows, cols, cell_h, cell_w, 0)
-                if stamps:
-                    _label_cells(luma, stamps, cols, cell_h, cell_w)
-                canvas = (luma,
-                          _tile(us, rows, cols, cell_h // 2, cell_w // 2, 128),
-                          _tile(vs, rows, cols, cell_h // 2, cell_w // 2, 128))
-            with prof.stage("encode"):
-                writer.write(canvas)
-            t += 1
-            prog.tick()
+        with TrimmedFrames(reader, first, last, options, dev, prof) as frames:
+            for planes_u8 in frames:
+                if t >= num_frames:
+                    break
+                with prof.stage("warp"):
+                    planes_f32 = tuple(p.to(torch.float32) for p in planes_u8)
+                    cells = [warp_cell(fam, corr[t], planes_u8, planes_f32)
+                             for fam, corr in per_mode]
+                    ys, us, vs = zip(*cells)
+                    luma = _tile(ys, rows, cols, cell_h, cell_w, 0)
+                    if stamps:
+                        _label_cells(luma, stamps, cols, cell_h, cell_w)
+                    canvas = (luma,
+                              _tile(us, rows, cols, cell_h // 2, cell_w // 2, 128),
+                              _tile(vs, rows, cols, cell_h // 2, cell_w // 2, 128))
+                with prof.stage("encode"):
+                    writer.write(canvas)
+                t += 1
+                prog.tick()
     except BaseException:
-        pre.close()
         try:
             writer.close()
         except Exception:
             pass
-        reader.close()
         raise
     prog.close()
-    pre.close()
     with prof.stage("encode"):
         writer.close()
-    reader.close()
     if options.verbose:
         print(prof.report())

@@ -80,13 +80,8 @@ from video_annotator_tpu_torch.io.video import (
     yuv420_to_bgr,
 )
 from video_annotator_tpu_torch.ops.corners import detect_corners
-from video_annotator_tpu_torch.ops.lk import DEF_LEVELS, WIN, pyramidal_lk, resolve_lk
-from video_annotator_tpu_torch.ops.lk_kernel import (
-    pyramidal_lk_packed,
-    pyramidal_lk_pairs,
-    stage_pyramid,
-    stage_pyramid_pairs,
-)
+from video_annotator_tpu_torch.ops.lk import DEF_LEVELS, WIN
+from video_annotator_tpu_torch.ops.lk_kernel import LKRoute
 from video_annotator_tpu_torch.ops.ransac import (
     NUM_HYPOTHESES,
     estimate_rotation,
@@ -290,6 +285,40 @@ def open_trimmed(source: str, o, device):
         reader = open_reader(source, start_frame=first, device=device,
                              prefer_native=o.native_io)
     return reader, meta, first, last
+
+
+class TrimmedFrames:
+    """The (y, u, v) device frames ``[first, last)`` of ``reader``, a trim
+    window of :func:`open_trimmed`, decoded and uploaded ahead on a
+    :class:`DevicePrefetcher` (stages ``decode``, ``upload`` and
+    ``feed-wait`` of ``profiler``), which starts on construction. Frames
+    before ``first`` are skipped where the reader could not seek. Leaving
+    the ``with`` block stops the prefetcher and closes the reader, at the
+    loop's end, on a ``break`` and on an exception."""
+
+    def __init__(self, reader, first: int, last: int, options, device,
+                 profiler: StageProfiler):
+        self.reader, self.first, self.last = reader, first, last
+        self.pre = DevicePrefetcher(profiler.wrap_iter("decode", iter(reader)),
+                                    depth=options.prefetch_depth, device=device,
+                                    profiler=profiler)
+
+    def __iter__(self):
+        idx = self.reader.start_frame - 1
+        for planes in self.pre:
+            idx += 1
+            if idx < self.first:
+                continue
+            if idx >= self.last:
+                return
+            yield planes
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.pre.close()
+        self.reader.close()
 
 
 def _passthrough_kwargs(source: str, o: RenderOptions) -> dict:
@@ -828,20 +857,18 @@ def pair_generator(seed: int, frame_index: int) -> torch.Generator:
 class _Tracking:
     """What both analysers share: the tracking-scale input camera, the
     RANSAC threshold, the gates of :func:`tracking_gates` and the seeding
-    border at tracking resolution, the RANSAC samples, and the LK
-    (``lk``: ``"kernel"`` for K2 over K3-staged uint8 levels, and the
-    plain level on the levels too small for K2's window, on a CUDA
-    device, ``"plain"`` for
-    :func:`~video_annotator_tpu_torch.ops.lk.pyramidal_lk` on float levels
-    on the CPU, as the JAX package picks its Pallas or XLA LK), and the
-    ``profiler`` that times their parts (the caller's, or one of their
-    own)."""
+    border at tracking resolution, the RANSAC samples, the LK (``lk``, the
+    device's :class:`~video_annotator_tpu_torch.ops.lk_kernel.LKRoute` at
+    ``--analysis-iters``), the ``profiler`` that times their parts (the
+    caller's, or one of their own) and their interface: :meth:`push` a
+    frame, then :meth:`finish`, each returning the (k, 3, 3) accumulated
+    rotations that became known."""
 
     def __init__(self, meta: VideoMeta, options: RenderOptions, device,
                  profiler: Optional[StageProfiler] = None):
         self.device = torch.device(device)
         self.profiler = profiler or StageProfiler()
-        self.lk = resolve_lk(self.device)
+        self.lk = LKRoute(self.device, iters=options.analysis_iters)
         in_cam_native = _input_camera(meta, options)
         self.level = analysis_level(options, meta)
         self.in_cam = mip_camera(in_cam_native, self.level)
@@ -849,7 +876,8 @@ class _Tracking:
         self.threshold = 8.0 / float(in_cam_native.fx)
         self.min_distance, self.min_inliers, self.min_refresh = tracking_gates(track_w)
         self.border = tracking_border(track_w, self.in_cam.height)
-        self.iters = int(options.analysis_iters)
+        self._eye = torch.eye(3, dtype=torch.float32, device=self.device)
+        self._none = self._eye[None][:0]  # (0, 3, 3): no rotation known yet
 
     @staticmethod
     def hypothesis_pairs(status: torch.Tensor, first_index: int) -> torch.Tensor:
@@ -868,15 +896,25 @@ class _Tracking:
 
 
 class PairTracker(_Tracking):
-    """Paired analyse of one chunk (``--analysis-mode paired``).
+    """Paired analyse (``--analysis-mode paired``), a chunk of
+    ``--analysis-chunk`` frame pairs at a time.
 
-    Detect fresh corners on every frame, LK-track all adjacent pairs (in
-    one K2 launch per pyramid level, or the plain LK over the pair axis),
-    RANSAC every pair, carry failed pairs (fewer than the inlier gate)
-    over with the last good delta, and chain the deltas into accumulated
-    rotations.
+    :meth:`push` buffers each frame and returns nothing until a chunk is
+    full; then the chunk (with the previous chunk's last frame in front)
+    is tracked in one call (:meth:`__call__`) and its rotations returned.
+    :meth:`finish` tracks the rest, padded to a chunk with its last frame,
+    and drops the padded rotations. The tracker carries the previous
+    chunk's last frame and rotations and the global index of the next
+    pair, which keys its RANSAC generator, so the trajectory does not
+    depend on the chunk size.
 
-    ``profiler`` times the parts of each call on the host clock, which
+    A chunk: detect fresh corners on every frame, LK-track all adjacent
+    pairs (in one K2 launch per pyramid level, or the plain LK over the
+    pair axis), RANSAC every pair, carry failed pairs (fewer than the
+    inlier gate) over with the last good delta, and chain the deltas into
+    accumulated rotations.
+
+    ``profiler`` times the parts of each chunk on the host clock, which
     together cover it: ``detect`` (the box downsample and the corners),
     ``stage`` (K3's staging, for K2), ``lk``, ``ransac`` (``hypotheses``
     inside it: the host draws and their upload) and ``chain`` (the
@@ -890,31 +928,63 @@ class PairTracker(_Tracking):
         self.det_md = max(1, self.min_distance >> self.detect_level)
         self.det_border = max(4, -(-self.border // (1 << self.detect_level)))
         self.det_scale = float(1 << self.detect_level)
+        self.chunk = max(1, int(options.analysis_chunk))
+        self._prev = None  # the last frame tracked, the next chunk's first
+        self._pending: list = []
+        self._r_base = self._prev_delta = self._eye
+        self._offset = 0  # global index of the next pair
+
+    def push(self, frame: torch.Tensor) -> torch.Tensor:
+        """Feed the next (H, W) uint8 frame; returns the (k, 3, 3)
+        accumulated rotations now known: the identity for the first frame,
+        none while a chunk fills, then the chunk's."""
+        if self._prev is None:
+            self._prev = frame
+            return self._eye[None]
+        self._pending.append(frame)
+        if len(self._pending) < self.chunk:
+            return self._none
+        return self.finish()
+
+    def finish(self) -> torch.Tensor:
+        """Track the frames pushed since the last chunk (the tail pads with
+        its last frame; padded rotations are dropped) and return their
+        rotations."""
+        k = len(self._pending)
+        if not k:
+            return self._none
+        frames = [self._prev] + self._pending + self._pending[-1:] * (self.chunk - k)
+        self._prev = self._pending[-1]
+        self._pending = []
+        self._r_base, self._prev_delta, rs = self(self._r_base, self._prev_delta,
+                                                  self._offset, torch.stack(frames))
+        self._offset += k
+        return rs[:k]
+
+    def detect(self, grays: torch.Tensor):
+        """Corners of (P, h, w) float frames at tracking resolution,
+        detected ``--analysis-detect-level`` levels lower and scaled back:
+        ``(pts (P, N, 2), valid (P, N))``."""
+        pts, valid = detect_corners(box_downsample(grays, self.detect_level),
+                                    max_corners=MAX_CORNERS, min_distance=self.det_md,
+                                    border=self.det_border)
+        if self.detect_level:
+            pts = pts * self.det_scale + (self.det_scale - 1.0) * 0.5
+        return pts, valid
 
     def __call__(self, r_base: torch.Tensor, prev_delta: torch.Tensor,
                  offset: int, frames: torch.Tensor):
-        """(G+1, H, W) uint8 frames (element 0 = the previous chunk's last)
-        -> (r_base', prev_delta', (G, 3, 3) accumulated rotations)."""
+        """One chunk: (G+1, H, W) uint8 frames (element 0 = the previous
+        chunk's last), its first pair's global index ``offset`` -> (r_base',
+        prev_delta', (G, 3, 3) accumulated rotations)."""
         span = self.profiler.stage
         g = frames.shape[0] - 1
         with span("detect"):
             grays = box_downsample(frames.to(torch.float32), self.level)
-            det_in = box_downsample(grays[:-1], self.detect_level)
-            pts, valid = detect_corners(det_in, max_corners=MAX_CORNERS,
-                                        min_distance=self.det_md,
-                                        border=self.det_border)
-            if self.detect_level:
-                pts = pts * self.det_scale + (self.det_scale - 1.0) * 0.5
-        if self.lk == "kernel":
-            with span("stage"):
-                staged = stage_pyramid_pairs(grays, plain_levels=True)
-            with span("lk"):
-                new_pts, status = pyramidal_lk_pairs(
-                    staged, (grays.shape[1], grays.shape[2]), pts, valid, iters=self.iters)
-        else:
-            with span("lk"):
-                new_pts, status = pyramidal_lk(grays[:-1], grays[1:], pts, valid,
-                                               iters=self.iters)
+            pts, valid = self.detect(grays[:-1])
+        staged = self.lk.stage_pairs(grays, self.profiler)
+        with span("lk"):
+            new_pts, status = self.lk.track_pairs(staged, pts, valid)
         with span("ransac"):
             with span("hypotheses"):
                 pairs = self.hypothesis_pairs(status, offset)
@@ -988,14 +1058,11 @@ class Tracker(_Tracking):
 
     def detect(self, frame: torch.Tensor):
         """(H, W) frame -> ``(pts, valid, state)``: corners at tracking
-        resolution and the carry ``(gray, staged pyramid)`` (an empty
-        pyramid for the plain LK, which takes the frames)."""
+        resolution and the carry, the LK route's pyramid ``(gray, staged
+        levels)`` (no levels for the plain LK, which takes the frames)."""
         gray = self._gray(frame)
         pts, valid = self._detect(gray)
-        return pts, valid, (gray, self._stage(gray))
-
-    def _stage(self, gray: torch.Tensor):
-        return stage_pyramid(gray, plain_levels=True) if self.lk == "kernel" else ()
+        return pts, valid, self.lk.stage(gray)
 
     def step(self, state, frame: torch.Tensor, pts: torch.Tensor,
              valid: torch.Tensor, prev_delta: torch.Tensor, r_acc: torch.Tensor,
@@ -1007,14 +1074,9 @@ class Tracker(_Tracking):
         valid, delta, r, state)`` for the next step."""
         span = self.profiler.stage
         with span("stage"):
-            gray = self._gray(frame)
-            staged = self._stage(gray)
+            staged = self.lk.stage(self._gray(frame))
         with span("lk"):
-            if self.lk == "kernel":
-                new_pts, status = pyramidal_lk_packed(
-                    state[1], staged, tuple(gray.shape), pts, valid, self.iters)
-            else:
-                new_pts, status = pyramidal_lk(state[0], gray, pts, valid, iters=self.iters)
+            new_pts, status = self.lk.track(state, staged, pts, valid)
         with span("ransac"):
             est = estimate_rotation(
                 self.in_cam.unproject_unit(pts)[None],
@@ -1030,23 +1092,26 @@ class Tracker(_Tracking):
                 self.host_syncs += 1
                 refresh = int(status.sum()) < self.min_refresh
             if refresh:
-                new_pts, status = self._detect(gray)
-        return new_pts, status, delta, r, (gray, staged)
+                new_pts, status = self._detect(staged[0])
+        return new_pts, status, delta, r, staged
 
     def push(self, frame: torch.Tensor) -> torch.Tensor:
-        """Feed the next frame; returns its accumulated (3, 3) rotation
+        """Feed the next frame; returns its (1, 3, 3) accumulated rotation
         (the identity for the first frame)."""
         if self._carry is None:
             pts, valid, state = self.detect(frame)
-            eye = torch.eye(3, dtype=torch.float32, device=self.device)
-            self._carry = (state, pts, valid, eye, eye, 0, 0)
-            return eye
+            self._carry = (state, pts, valid, self._eye, self._eye, 0, 0)
+            return self._eye[None]
         state, pts, valid, delta, r, age, n = self._carry
         pts, valid, delta, r, state = self.step(state, frame, pts, valid,
                                                 delta, r, n, age)
         age = 0 if age >= KEY_FRAME_MAX_AGE else age + 1
         self._carry = (state, pts, valid, delta, r, age, n + 1)
-        return r
+        return r[None]
+
+    def finish(self) -> torch.Tensor:
+        """Nothing waits: every frame's rotation came from its push."""
+        return self._none
 
 
 def analyse(source: str, options: RenderOptions,
@@ -1062,67 +1127,21 @@ def analyse(source: str, options: RenderOptions,
     dev = torch.device(device)
     with prof.stage("open"):
         reader, meta, first, last = open_trimmed(source, options, dev)
-        chunk_n = max(1, int(options.analysis_chunk))
-        eye = torch.eye(3, dtype=torch.float32, device=dev)
-        r_base, prev_delta = eye, eye
-        r_list = []
-        prev_frame = None
-        pending: list = []
-        emitted = 0
-        if mode == "tracked":
-            tracker = Tracker(meta, options, dev, prof)
-        else:
-            pair_tracker = PairTracker(meta, options, dev, prof)
-        pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
-                               depth=options.prefetch_depth, device=dev, profiler=prof)
-
-    def flush_chunk():
-        """Pad the tail by repeating its last frame; padded outputs drop."""
-        nonlocal prev_frame, r_base, prev_delta, emitted
-        k = len(pending)
-        if not k:
-            return
-        frames = [prev_frame] + pending + [pending[-1]] * (chunk_n - k)
-        prev_frame = pending[-1]
-        pending.clear()
-        r_base, prev_delta, rs = pair_tracker(r_base, prev_delta, emitted,
-                                              torch.stack(frames))
-        emitted += k
-        r_list.append(rs[:k])
-
+        tracker = (Tracker if mode == "tracked" else PairTracker)(meta, options, dev, prof)
+        frames = TrimmedFrames(reader, first, last, options, dev, prof)
+    r_list = []
     prog = Progress("analyse", total=(last - first) if meta.num_frames else None)
-    idx = reader.start_frame - 1
-    try:
-        for y, _, _ in pre:
-            idx += 1
-            if idx < first:
-                continue
-            if idx >= last:
-                break
-            if mode == "tracked":
-                with prof.stage("track"):
-                    r_list.append(tracker.push(y)[None])
-            elif prev_frame is None:
-                prev_frame = y
-                r_list.append(r_base[None])
-            else:
-                with prof.stage("track"):
-                    pending.append(y)
-                    if len(pending) >= chunk_n:
-                        flush_chunk()
+    with frames:
+        for y, _, _ in frames:
+            with prof.stage("track"):
+                r_list.append(tracker.push(y))
             prog.tick()
         with prof.stage("track"):
-            flush_chunk()
-    finally:
-        prog.close()
-        pre.close()
-        reader.close()
+            r_list.append(tracker.finish())
+    prog.close()
 
     with prof.stage("collect"):
-        if r_list:
-            rotvecs = so3.log(torch.cat(r_list)).cpu().numpy().astype(np.float64)
-        else:
-            rotvecs = np.zeros((0, 3))
+        rotvecs = so3.log(torch.cat(r_list)).cpu().numpy().astype(np.float64)
     # Telemetry extraction and gravity integration are pure cost unless
     # the horizon lock consumes the result.
     up0 = (_estimate_up0(source, float(first) / float(meta.fps), dev)
@@ -1445,9 +1464,8 @@ def encode(source: str, dest: Optional[str], traj: Trajectory,
                              num_frames=traj.num_frames)
         overlay = _rotation_overlay(traj, corrections) if options.debug else None
         writer = open_sink(source, dest, out_meta, options, overlay, prof)
-        feed = _encode_feed(reader, corrections, options, prof, dev)
-    _batched_encode_loop(reader, writer, feed, warper.warp_yuv_batch, prof, first, last,
-                         traj.num_frames)
+        feed = _encode_feed(reader, first, last, corrections, options, prof, dev)
+    _batched_encode_loop(writer, feed, warper.warp_yuv_batch, prof, traj.num_frames)
     return out_meta
 
 
@@ -1504,12 +1522,12 @@ def _scanline_corrections(source: str, traj: Trajectory, corrections: np.ndarray
                             fractions).cpu().numpy()
 
 
-def _encode_feed(reader, corrections, options, prof, device):
+def _encode_feed(reader, first, last, corrections, options, prof, device):
     """What the batched encode needs before its loop, made in its phase's
     ``open`` stage: the per-batch rotation stacks ((T, 3, 3), or (T, ny,
     3, 3) with ``--rolling-shutter``) uploaded up front, the last padded
-    with its last rotation, and the prefetched frames. Returns ``(pre,
-    rots_dev, batch, corrections)``."""
+    with its last rotation, and the trim window's frames. Returns
+    ``(frames, rots_dev, batch, corrections)``."""
     corr = np.asarray(corrections, np.float32)
     batch = max(1, int(options.warp_batch or DEFAULT_WARP_BATCH))
     rots_dev = [
@@ -1518,18 +1536,16 @@ def _encode_feed(reader, corrections, options, prof, device):
         )).to(device)
         for i in range(0, len(corr), batch)
     ]
-    pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
-                           depth=options.prefetch_depth, device=device, profiler=prof)
-    return pre, rots_dev, batch, len(corr)
+    frames = TrimmedFrames(reader, first, last, options, device, prof)
+    return frames, rots_dev, batch, len(corr)
 
 
-def _batched_encode_loop(reader, writer, feed, warp_batch_fn, prof, first, last, total):
+def _batched_encode_loop(writer, feed, warp_batch_fn, prof, total):
     """Device-batched encode of :func:`_encode_feed`'s ``feed``: prefetched
     frames warped a batch at a time, the tail padded with its last frame
     (padded outputs dropped), outputs given to ``writer``
     (:func:`open_sink`: read back and written on a worker thread)."""
-    pre, rots_dev, batch, n_corr = feed
-    idx = reader.start_frame - 1
+    frames, rots_dev, batch, n_corr = feed
     t = 0
     pending = []
     prog = Progress("encode", total=total)
@@ -1549,30 +1565,24 @@ def _batched_encode_loop(reader, writer, feed, warp_batch_fn, prof, first, last,
         prog.tick(n)
 
     try:
-        for y, u, v in pre:
-            idx += 1
-            if idx < first:
-                continue
-            if idx >= last or t >= n_corr:
-                break
-            pending.append((y, u, v))
-            t += 1
-            if len(pending) == batch:
-                flush()
-        flush()
+        with frames:
+            for planes in frames:
+                if t >= n_corr:
+                    break
+                pending.append(planes)
+                t += 1
+                if len(pending) == batch:
+                    flush()
+            flush()
     except BaseException:
-        pre.close()
         try:
             writer.close()
         except Exception:
             pass
-        reader.close()
         raise
     prog.close()
-    pre.close()
     with prof.stage("encode"):
         writer.close()
-    reader.close()
 
 
 def _refuse_translation_upsample(up: float, translation_only: bool) -> None:
@@ -1645,15 +1655,15 @@ def encode_2d(source: str, dest: Optional[str], traj: Trajectory,
         if kernel:
             pwarper = SimilarityWarper(meta.width, meta.height, interp=options.interp,
                                        out_size=(out_h, out_w))
-            feed = _encode_feed(reader, SimilarityWarper.matrices(corrections), options, prof, dev)
+            feed = _encode_feed(reader, first, last, SimilarityWarper.matrices(corrections),
+                                options, prof, dev)
         else:
             # One frame per batch: the loop pads a short batch with repeated
             # frames, which a frame-by-frame warp would compute for nothing.
-            feed = _encode_feed(reader, corrections, dataclasses.replace(options, warp_batch=1),
-                                prof, dev)
+            feed = _encode_feed(reader, first, last, corrections,
+                                dataclasses.replace(options, warp_batch=1), prof, dev)
     if kernel:
-        _batched_encode_loop(reader, writer, feed, pwarper.warp_yuv_batch, prof, first, last,
-                             traj.num_frames)
+        _batched_encode_loop(writer, feed, pwarper.warp_yuv_batch, prof, traj.num_frames)
         return out_meta
 
     in_h2 = meta.height - meta.height % 2
@@ -1669,7 +1679,7 @@ def encode_2d(source: str, dest: Optional[str], traj: Trajectory,
             out.append(tuple(warp_kernel.to_u8(p) for p in planes))
         return out
 
-    _batched_encode_loop(reader, writer, feed, warp_frames, prof, first, last, traj.num_frames)
+    _batched_encode_loop(writer, feed, warp_frames, prof, traj.num_frames)
     return out_meta
 
 

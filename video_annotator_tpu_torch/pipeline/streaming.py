@@ -12,10 +12,12 @@ re-exponentiates the saved rotation vectors). The radius shrinks like
 the two-phase one for clips shorter than the window, decided at the first
 emission.
 
-``--analysis-mode paired`` tracks inside the ring: arriving frames buffer
-into groups of ``--analysis-chunk``, each group tracked in one batched
-pass keyed by the global pair index, so the trajectory is the two-phase
-paired analyse's. ``tracked`` runs :class:`Tracker` frame by frame.
+Either analyser tracks inside the ring through its ``push`` and
+``finish``: ``--analysis-mode paired`` (:class:`PairTracker`) buffers
+arriving frames into groups of ``--analysis-chunk`` and tracks each in one
+batched pass keyed by the global pair index, so the trajectory is the
+two-phase paired analyse's; ``tracked`` (:class:`Tracker`) tracks frame by
+frame.
 
 The ring holds ``radius + warp_batch`` decoded YUV frames on the device
 (about 17 MB a frame at 3840x2880). The corrections are not known up
@@ -40,7 +42,7 @@ import numpy as np
 import torch
 
 from video_annotator_tpu_torch import so3
-from video_annotator_tpu_torch.io.prefetch import DevicePrefetcher, DeviceReduceSink
+from video_annotator_tpu_torch.io.prefetch import DeviceReduceSink
 from video_annotator_tpu_torch.io.video import VideoMeta
 from video_annotator_tpu_torch.pipeline.profiler import Progress, StageProfiler
 from video_annotator_tpu_torch.pipeline.render import (
@@ -49,6 +51,7 @@ from video_annotator_tpu_torch.pipeline.render import (
     PairTracker,
     RenderOptions,
     Tracker,
+    TrimmedFrames,
     _estimate_up0,
     build_cameras,
     make_window_corrections,
@@ -108,11 +111,9 @@ def render_streaming(source: str, dest: Optional[str],
         # stabilise none without a horizon lock needs no measured attitude:
         # the tracker is skipped and the corrections are the attitude alone.
         needs_motion = options.stabilise != "none" or options.horizon_lock
-        pair_tracker = tracker = None
-        if needs_motion and mode == "paired":
-            pair_tracker = PairTracker(meta, options, dev, prof)
-        elif needs_motion:
-            tracker = Tracker(meta, options, dev, prof)
+        tracker = None
+        if needs_motion:
+            tracker = (PairTracker if mode == "paired" else Tracker)(meta, options, dev, prof)
         in_cam, out_cam = build_cameras(meta, options)
         up0 = (_estimate_up0(source, float(first) / float(meta.fps), dev)
                if options.horizon_lock else None)
@@ -137,8 +138,7 @@ def render_streaming(source: str, dest: Optional[str],
                 return overlay
             writer = open_sink(source, dest, out_meta, options,
                                hud if options.debug else None, prof)
-        pre = DevicePrefetcher(prof.wrap_iter("decode", iter(reader)),
-                               depth=options.prefetch_depth, device=dev, profiler=prof)
+        source_frames = TrimmedFrames(reader, first, last, options, dev, prof)
     batch = max(1, int(options.warp_batch or DEFAULT_WARP_BATCH))
     want_radius = options.stabilise_radius if options.stabilise == "smooth" else 0
 
@@ -148,24 +148,6 @@ def render_streaming(source: str, dest: Optional[str],
     batch_corr = None
     radius_eff = 0
     eye = torch.eye(3, dtype=torch.float32, device=dev)
-    r_acc, prev_delta = eye, eye
-    chunk_n = max(1, int(options.analysis_chunk))
-    pend_pairs: list = []
-    prev_pair = None
-
-    def flush_pairs():
-        """Track the buffered group in one pass (the tail, only at EOF,
-        pads with its last frame; padded rotations are dropped)."""
-        nonlocal prev_pair, r_acc, prev_delta
-        k = len(pend_pairs)
-        if not k:
-            return
-        stack = [prev_pair] + pend_pairs + [pend_pairs[-1]] * (chunk_n - k)
-        prev_pair = pend_pairs[-1]
-        pend_pairs.clear()
-        r_acc, prev_delta, rs = pair_tracker(r_acc, prev_delta, len(rots) - 1,
-                                             torch.stack(stack))
-        rots.extend(rs[:k])
 
     def emit(n: int):
         """Warp and write frames [emitted, emitted + n), n <= batch."""
@@ -203,47 +185,29 @@ def render_streaming(source: str, dest: Optional[str],
         prog.tick(n)
 
     prog = Progress("render", total=n_expect or None)
-    idx = reader.start_frame - 1
     try:
-        for y, u, v in pre:
-            idx += 1
-            if idx < first:
-                continue
-            if idx >= last:
-                break
-            frames.append((y, u, v))
-            with prof.stage("track"):
-                if pair_tracker is not None and prev_pair is None:
-                    prev_pair = y
-                    rots.append(r_acc)
-                elif pair_tracker is not None:
-                    pend_pairs.append(y)
-                    if len(pend_pairs) >= chunk_n:
-                        flush_pairs()
-                elif tracker is not None:
-                    rots.append(tracker.push(y))
-                else:
-                    rots.append(eye)
-            # Emit every batch whose full lookahead window is present.
-            while len(rots) - want_radius - emitted >= batch:
-                emit(batch)
-        pre.close()
+        with source_frames:
+            for y, u, v in source_frames:
+                frames.append((y, u, v))
+                with prof.stage("track"):
+                    rots.extend(tracker.push(y) if tracker is not None else eye[None])
+                # Emit every batch whose full lookahead window is present.
+                while len(rots) - want_radius - emitted >= batch:
+                    emit(batch)
         with prof.stage("track"):
-            flush_pairs()
+            if tracker is not None:
+                rots.extend(tracker.finish())
         while emitted < len(rots):
             emit(min(batch, len(rots) - emitted))
     except BaseException:
-        pre.close()
         try:
             writer.close()
         except Exception:
             pass
-        reader.close()
         raise
     prog.close()
     with prof.stage("encode"):
         writer.close()
-    reader.close()
 
     # The trajectory checkpoint, so a later --encode-only can reuse this
     # pass's analysis; an identity trajectory (stabilise none) is not saved.

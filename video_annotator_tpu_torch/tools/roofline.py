@@ -249,6 +249,16 @@ def measure_k1(device) -> dict:
     return out
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for ``nbytes`` moved and
+    ``ops`` float32 operations at the published peaks, and which of the
+    two binds."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def k1_roofline(ops_per_s: float, gathers_per_s: float, ns_per_pixel: dict,
                 map_ops_: int, issue_per_s: float, tap_ops: int = TAP_OPS,
                 gathers: int = GATHERS_PER_PIXEL, nbytes: int = BYTES_PER_PIXEL,

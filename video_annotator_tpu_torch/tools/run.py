@@ -150,20 +150,19 @@ def _synthetic_lumas(w, h, n, shake=0.006, device="cuda"):
     return frames
 
 
-def _frame_lk(dev: torch.device, shape):
-    """``lk(prev, curr, pts, valid)`` of the 1080p configs: on a card both
-    frames staged (K3) and tracked by K2's per-frame form (the plain level
-    where K2 cannot stage a level), as JAX's ``pyramidal_lk_pallas``; on
-    the CPU the plain ``pyramidal_lk``, as JAX's XLA LK there."""
-    from video_annotator_tpu_torch.ops.lk import pyramidal_lk, resolve_lk
-    from video_annotator_tpu_torch.ops.lk_kernel import pyramidal_lk_packed, stage_pyramid
+def _frame_lk(dev: torch.device):
+    """``lk(prev, curr, pts, valid)`` of the 1080p configs, the analysers'
+    one-pair LK route: on a card both frames staged (K3) and tracked by
+    K2's per-frame form (the plain level where K2 cannot stage a level),
+    as JAX's ``pyramidal_lk_pallas``; on the CPU the plain
+    ``pyramidal_lk``, as JAX's XLA LK there."""
+    from video_annotator_tpu_torch.ops.lk_kernel import LKRoute
 
-    if resolve_lk(dev) == "kernel":
-        def lk(prev, curr, pts, valid):
-            return pyramidal_lk_packed(stage_pyramid(prev, plain_levels=True),
-                                       stage_pyramid(curr, plain_levels=True), shape, pts, valid)
-        return lk
-    return pyramidal_lk
+    route = LKRoute(dev)
+
+    def lk(prev, curr, pts, valid):
+        return route.track(route.stage(prev), route.stage(curr), pts, valid)
+    return lk
 
 
 # --------------------------------------------------------------------------
@@ -206,7 +205,7 @@ def bench_1080p_sparse_flow(device="cuda"):
     dev = torch.device(device)
     w, h, n = 1920, 1080, 120
     frames = _synthetic_lumas(w, h, n, device=dev)
-    lk = _frame_lk(dev, (h, w))
+    lk = _frame_lk(dev)
 
     def step(prev, curr, pts, valid, acc):
         new_pts, status = lk(prev, curr, pts, valid)
@@ -251,7 +250,7 @@ def bench_1080p_full_pipeline(device="cuda"):
     frames8 = [f.to(torch.uint8) for f in frames]
     uu = torch.full((h // 2, w // 2), 128, dtype=torch.uint8, device=dev)
     vv = torch.full((h // 2, w // 2), 128, dtype=torch.uint8, device=dev)
-    lk = _frame_lk(dev, (h, w))
+    lk = _frame_lk(dev)
 
     def track(prev, curr, pts, valid, prev_delta, r_acc, index):
         new_pts, status = lk(prev, curr, pts, valid)
@@ -353,7 +352,8 @@ def bench_4k_gyro_fused(device="cuda"):
 
 def paired_stacks(frames, chunk: int):
     """The paired analyser's chunks of a frame list: frames i - 1 .. i +
-    chunk - 1 for i = 1, 1 + chunk, ..., the last repeated to chunk + 1."""
+    chunk - 1 for i = 1, 1 + chunk, ..., the last repeated to chunk + 1
+    (the chunks ``PairTracker.push`` and ``finish`` track, written out)."""
     stacks = []
     for i in range(1, len(frames), chunk):
         s = torch.stack(frames[i - 1:i + chunk])
@@ -363,23 +363,11 @@ def paired_stacks(frames, chunk: int):
     return stacks
 
 
-def analyse_paired(pair_tracker, stacks, n: int) -> torch.Tensor:
-    """(n, 3, 3) accumulated rotations of the chunks through
-    ``PairTracker``, as ``pipeline/render.py::analyse`` chains them."""
-    eye = torch.eye(3, dtype=torch.float32, device=stacks[0].device)
-    r_base, prev_delta = eye, eye
-    rs = [r_base[None]]
-    off = 0
-    for s in stacks:
-        r_base, prev_delta, ras = pair_tracker(r_base, prev_delta, off, s)
-        rs.append(ras)
-        off += s.shape[0] - 1
-    return torch.cat(rs)[:n]
-
-
-def analyse_tracked(tracker, frames) -> torch.Tensor:
-    """(n, 3, 3) accumulated rotations of the frames through ``Tracker``."""
-    return torch.stack([tracker.push(y) for y in frames])
+def analyse_frames(tracker, frames) -> torch.Tensor:
+    """(n, 3, 3) accumulated rotations of the frames through either
+    analyser (``Tracker`` or ``PairTracker``), as
+    ``pipeline/render.py::analyse`` feeds it."""
+    return torch.cat([tracker.push(y) for y in frames] + [tracker.finish()])
 
 
 def bench_4k_visual_full_pipeline(device="cuda", detect_level=None, tag=""):
@@ -424,14 +412,10 @@ def bench_4k_visual_full_pipeline(device="cuda", detect_level=None, tag=""):
                          analysis_chunk=chunk, analysis_mode=mode,
                          analysis_detect_level=detect_level)
     scale = resolve_analysis_scale(opts, meta)
-    if mode == "paired":
-        stacks = paired_stacks(frames8, chunk)
+    analyser = PairTracker if mode == "paired" else Tracker
 
-        def analyse_run():
-            return analyse_paired(PairTracker(meta, opts, dev), stacks, n)
-    else:
-        def analyse_run():
-            return analyse_tracked(Tracker(meta, opts, dev), frames8)
+    def analyse_run():
+        return analyse_frames(analyser(meta, opts, dev), frames8)
     _sync(dev)
 
     def smooth(m):
@@ -544,11 +528,10 @@ def bench_e2e_decode_overlap(device="cuda", source="mp4"):
     in_cam, out_cam = build_cameras(meta, opts)
     warper = FrameWarper(in_cam, out_cam, max_correction_deg=8.0, device=dev)
     dev_frames = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in host_frames]
-    stacks = paired_stacks([f[0] for f in dev_frames], opts.analysis_chunk)
     _sync(dev)
 
     def compute_all():
-        rs = analyse_paired(PairTracker(meta, opts, dev), stacks, n)
+        rs = analyse_frames(PairTracker(meta, opts, dev), [f[0] for f in dev_frames])
         corr = so3.matmul(rs, smooth_rotations(rs, radius=30).transpose(-1, -2))
         _pipelined([functools.partial(
             warper.warp_yuv_batch, *(tuple(f[p] for f in dev_frames[i:i + BATCH])

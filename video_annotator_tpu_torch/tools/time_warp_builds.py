@@ -80,7 +80,6 @@ from video_annotator_tpu_torch import so3
 from video_annotator_tpu_torch.camera import CameraPreset
 from video_annotator_tpu_torch.io.synthetic import SyntheticSource, render_frame
 from video_annotator_tpu_torch.ops import cuda_lib, lk_kernel, warp_kernel
-from video_annotator_tpu_torch.ops.corners import detect_corners
 from video_annotator_tpu_torch.ops.warp_plain import box_downsample, num_tile_rows
 from video_annotator_tpu_torch.pipeline import render
 from video_annotator_tpu_torch.tools.roofline import event_ms, queued_ms
@@ -505,10 +504,7 @@ def lk_cases(dev, lumas) -> list:
     options = render.RenderOptions(stabilise="smooth", preset=CameraPreset(PRESET))
     paired = render.PairTracker(meta, options, dev)
     grays = box_downsample(lumas[:LK_CHUNK].to(torch.float32), paired.level)
-    det = box_downsample(grays[:-1], paired.detect_level)
-    pts, _ = detect_corners(det, max_corners=render.MAX_CORNERS, min_distance=paired.det_md,
-                            border=paired.det_border)
-    pts = (pts * paired.det_scale + (paired.det_scale - 1.0) * 0.5).reshape(-1, 2)
+    pts = paired.detect(grays[:-1])[0].reshape(-1, 2)
     band = torch.arange(LK_CHUNK - 1, device=dev).repeat_interleave(render.MAX_CORNERS)
     staged = lk_kernel.stage_pyramid_pairs(grays)
     pairs = level0([None if s is None else (s, s, band) for s in staged], pts)
