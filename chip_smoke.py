@@ -26,7 +26,10 @@ the last line is printed):
    (``csrc/pyramid.cu``) on the cells' 17-frame chunks, 1920x1440
    integers and 1920x1080 quarters, at levels 1 and 2 (0 differing values
    from its plain twin, and from the two banded ``torch.matmul`` products
-   where those are exact), timed beside both; K2's per-frame form on
+   where those are exact), timed beside both; the Wahba kernel
+   (``csrc/wahba.cu``) on one refinement's 16 correlations, within 2e-6
+   of its plain twin, the PyTorch chain it replaces, timed beside it with
+   both queued behind a sleeping kernel; K2's per-frame form on
    one 4K pair box-downsampled to 1920x1440 with the tracker's 200
    corners, K2's level 0 timed over 100 launches queued behind a
    sleeping kernel. K1's per-tile-row rotation mode (the rolling-shutter
@@ -349,6 +352,15 @@ MODE_CASES = (
 )
 STAGE_OPS = 3
 PYR_OPS = 30  # float32 operations an output of the pyramid kernel: 10 + 5 fmaf
+# The Wahba kernel at a PairTracker chunk's batch, one refinement's
+# correlations; float32 operations a matrix, counted in csrc/wahba.cu: 82
+# a power step (two starts of a 4x4 product, a norm and 4 divisions), 139
+# for K, the shift, the Rayleigh quotients and the matrix.
+WAHBA_BATCH = 16
+WAHBA_ITERS = 120
+WAHBA_REPS = 100
+WAHBA_OPS = 82 * WAHBA_ITERS + 139
+WAHBA_ATOL = 2e-6
 # The parallel layer (rows 6 and 9): STREAMS 4K streams on one card (the
 # README's 8 x 4K60 batch), the variants its phase launches, the rank
 # counts of the spatial warp's bands (3 clamps: 440 tile rows).
@@ -1033,6 +1045,40 @@ def phase_pyramid(dev, results):
                 results["pyr_down"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                                            library_ms=library_ms, **b)
             img = out
+
+
+def phase_wahba(dev, results):
+    """The Wahba kernel on one refinement's batch: (16, 3, 3) correlations
+    of 200 noisy unit rays under random rotations, within 2e-6 of its
+    plain twin, whose chain of about 680 PyTorch launches is the
+    yardstick. Both are timed queued behind a sleeping kernel, so the
+    readings are card time without the host's enqueue; the bound is the
+    launch's own latency (the arithmetic floor is logged beside it)."""
+    g = torch.Generator(dev).manual_seed(23)
+    rot = so3.exp(torch.randn((WAHBA_BATCH, 3), generator=g, device=dev) * 0.5)
+    p = torch.nn.functional.normalize(
+        torch.randn((WAHBA_BATCH, 200, 3), generator=g, device=dev), dim=-1)
+    q = torch.einsum("bij,bnj->bni", rot, p)
+    q = q + torch.randn(q.shape, generator=g, device=dev) * 0.002
+    B = torch.einsum("bni,bnj->bij", q, p).contiguous()
+    before = so3.WAHBA.launches
+    got = so3.rotation_from_correlation(B, WAHBA_ITERS)
+    launched = so3.WAHBA.launches - before
+    check(launched == 1, f"the Wahba solve launched {launched} times")
+    want = so3.rotation_from_correlation_plain(B, WAHBA_ITERS)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    equal = float((got == want).float().mean())
+    check(err <= WAHBA_ATOL, f"Wahba kernel differs from its plain twin by {err:.3g}")
+    ms = queued_ms(lambda: so3.rotation_from_correlation(B, WAHBA_ITERS), WAHBA_REPS)
+    plain_ms = queued_ms(lambda: so3.rotation_from_correlation_plain(B, WAHBA_ITERS), 1)
+    plain_host_ms = host_ms(lambda: so3.rotation_from_correlation_plain(B, WAHBA_ITERS))
+    b = bound(2 * B.numel() * 4, WAHBA_BATCH * WAHBA_OPS)
+    log(f"[wahba] {tuple(B.shape)}: largest difference from the plain twin {err:.3g}, "
+        f"{equal:.4f} of floats equal; kernel {ms:.4f} ms (queued), plain chain "
+        f"{plain_ms:.4f} ms (queued; {plain_host_ms:.3f} ms on the host's clock); bound: "
+        f"launch latency, arithmetic floor {b['bound_ms']:.2e} ms ({b['bound_by']})")
+    results["wahba"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
 def phase_lk_frame(dev, results):
@@ -3094,6 +3140,7 @@ def main(argv=None) -> int:
     phase_warp_modes(dev, results)
     phase_stage_lk(dev, results)
     phase_pyramid(dev, results)
+    phase_wahba(dev, results)
     phase_lk_frame(dev, results)
     phase_warp_parallel(dev, results)
     roof_launches = phase_roofline(dev, results, label)

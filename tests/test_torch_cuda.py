@@ -25,7 +25,7 @@ from video_annotator_tpu_torch.models.similarity import (
     SimilarityWarper,
     warp_frame_similarity,
 )
-from video_annotator_tpu_torch.ops import lk, lk_kernel, roofline_kernel, stage, warp_kernel
+from video_annotator_tpu_torch.ops import lk, lk_kernel, ransac, roofline_kernel, stage, warp_kernel
 from video_annotator_tpu_torch.ops.warp_plain import box_downsample, scaled_camera
 from video_annotator_tpu_torch.pipeline import render as trender
 from video_annotator_tpu_torch.pipeline.trajectory import Trajectory
@@ -368,10 +368,10 @@ def test_pyr_down_kernel_is_the_banded_products_at_the_cells_shapes(cuda, record
     assert found["max_byte_diff"] <= 1
 
 
-def test_pair_tracker_builds_its_pyramid_with_the_kernel(cuda, monkeypatch):
-    """One ``PairTracker`` chunk of the 1440p cell's shape launches the
-    kernel once per level above 0 and no ``torch.matmul`` pyramid; its
-    rotations equal those over the banded products' pyramid."""
+def chunk_tracker(cuda):
+    """A function that runs one ``PairTracker`` chunk of the 1440p cell's
+    shape (17 synthetic 1920x1440 frames, 16 pairs) on the card and
+    returns its rotations."""
     from video_annotator_tpu_torch.io.synthetic import SyntheticSource, render_frame
 
     cfg = SyntheticSource.from_uri("synthetic://shaky?w=1920&h=1440&n=17&seed=5").config
@@ -383,7 +383,14 @@ def test_pair_tracker_builds_its_pyramid_with_the_kernel(cuda, monkeypatch):
     def pushed():
         tracker = trender.PairTracker(trender.VideoMeta(1920, 1440, 60, 17), opts, cuda)
         return torch.cat([tracker.push(f) for f in frames] + [tracker.finish()])
+    return pushed
 
+
+def test_pair_tracker_builds_its_pyramid_with_the_kernel(cuda, monkeypatch):
+    """One ``PairTracker`` chunk of the 1440p cell's shape launches the
+    kernel once per level above 0 and no ``torch.matmul`` pyramid; its
+    rotations equal those over the banded products' pyramid."""
+    pushed = chunk_tracker(cuda)
     matmuls = []
     real_matmul = torch.matmul
     monkeypatch.setattr(torch, "matmul", lambda *a: matmuls.append(a) or real_matmul(*a))
@@ -396,6 +403,108 @@ def test_pair_tracker_builds_its_pyramid_with_the_kernel(cuda, monkeypatch):
     assert lk.PYR_DOWN.launches - before == 2 and matmuls
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+WAHBA_ATOL = 2e-6  # the kernel against its plain twin: rounding of a converged power loop
+
+
+def correlations(lead: tuple, seed: int, device, points: int = 200) -> torch.Tensor:
+    """(*lead, 3, 3) float32 correlations as RANSAC's refinement forms
+    them: sum over the inliers of q p^T, ``points`` unit rays p with about
+    a fifth left out, q = R p plus noise, R a random rotation. The first
+    is the 180-degree turn about (1, -1, 0)/sqrt(2) (0.999 pi) that the
+    all-ones start cannot reach, the second all zeros (what a pair with
+    fewer than 2 inliers feeds). A B far from every rotation leaves the
+    120-step loop unconverged, where any two orders of summation part by
+    more than rounding; the refinement never forms one."""
+    rng = np.random.default_rng(seed)
+    m = math.prod(lead)
+    rot = so3.exp(torch.from_numpy(rng.normal(size=(m, 3)) * 0.5).float()).numpy()
+    p = rng.normal(size=(m, points, 3))
+    p /= np.linalg.norm(p, axis=-1, keepdims=True)
+    q = np.einsum("bij,bnj->bni", rot, p) + rng.normal(size=p.shape) * 0.002
+    w = rng.random((m, points)) > 0.2
+    B = np.einsum("bni,bnj,bn->bij", q, p, w).astype(np.float32)
+    if m > 0:
+        B[0] = so3.exp(torch.tensor([math.pi * 0.999 / math.sqrt(2),
+                                     -math.pi * 0.999 / math.sqrt(2), 0.0])).numpy()
+    if m > 1:
+        B[1] = 0.0
+    return torch.from_numpy(B).reshape(*lead, 3, 3).to(device)
+
+
+@pytest.mark.parametrize("lead", [(16,), (1,), (2, 5), (0,)])
+def test_wahba_kernel_matches_plain(cuda, lead, record_property):
+    """The Wahba kernel against its plain twin on the card, in one launch
+    a call and none for an empty batch: every entry within
+    :data:`WAHBA_ATOL`, the largest difference and the share of equal
+    floats recorded; the 180-degree case recovers its rotation."""
+    B = correlations(lead, seed=sum(lead) + 23, device=cuda)
+    before = so3.WAHBA.launches
+    got = so3.rotation_from_correlation(B)
+    assert so3.WAHBA.launches - before == int(B.numel() > 0)
+    want = so3.rotation_from_correlation_plain(B)
+    torch.cuda.synchronize()
+    assert got.shape == B.shape
+    if not B.numel():
+        return
+    diff = float((got - want).abs().max())
+    equal = float((got == want).float().mean())
+    print(f"{lead}: largest difference {diff:.3g}, {equal:.4f} of floats equal")
+    record_property("max_abs_diff", diff)
+    record_property("equal_share", equal)
+    assert diff <= WAHBA_ATOL
+    flat = got.reshape(-1, 3, 3)
+    assert torch.allclose(flat[0], B.reshape(-1, 3, 3)[0], atol=1e-5, rtol=0)
+
+
+def test_estimate_rotation_with_the_kernel_matches_the_plain_solve(cuda, monkeypatch):
+    """RANSAC at the cells' shape (16 pairs of 200 points, 100 injected
+    hypotheses) with the Wahba kernel, two launches a call, against the
+    same call with the plain solve on the card: the same inliers and
+    counts, rotations within the parity tests' 1e-5."""
+    rng = np.random.default_rng(23)
+    p = rng.normal(size=(16, 200, 3))
+    p /= np.linalg.norm(p, axis=-1, keepdims=True)
+    rot = so3.exp(torch.from_numpy(rng.normal(size=(16, 3)) * 0.02).float()).numpy()
+    q = np.einsum("bij,bnj->bni", rot, p) + rng.normal(size=p.shape) * 0.002
+    bad = rng.random((16, 200)) < 0.2
+    q[bad] += rng.normal(size=(int(bad.sum()), 3)) * 0.05
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    valid = torch.from_numpy(rng.random((16, 200)) > 0.1)
+    pairs = ransac.sample_pairs(valid, torch.rand((16, ransac.NUM_HYPOTHESES, 2),
+                                                  generator=torch.Generator().manual_seed(23)))
+    args = [torch.from_numpy(x).float().to(cuda) for x in (p, q)] + [valid.to(cuda)]
+
+    def run():
+        return ransac.estimate_rotation(*args, threshold_rad=8.0 / 600.0, pairs=pairs)
+
+    before = so3.WAHBA.launches
+    got = run()
+    assert so3.WAHBA.launches - before == 2
+    monkeypatch.setattr(so3, "rotation_from_correlation", so3.rotation_from_correlation_plain)
+    want = run()
+    torch.cuda.synchronize()
+    assert so3.WAHBA.launches - before == 2
+    assert torch.equal(got.num_inliers, want.num_inliers)
+    assert torch.equal(got.inliers, want.inliers)
+    assert torch.allclose(got.rotation, want.rotation, atol=1e-5, rtol=0)
+
+
+def test_pair_tracker_solves_wahba_with_the_kernel(cuda, monkeypatch):
+    """One ``PairTracker`` chunk of the 1440p cell's shape launches the
+    Wahba kernel exactly twice (RANSAC's two refinements); its rotations
+    are those of the plain solve within 1e-5."""
+    pushed = chunk_tracker(cuda)
+    before = so3.WAHBA.launches
+    got = pushed()
+    assert so3.WAHBA.launches - before == 2
+    monkeypatch.setattr(so3, "rotation_from_correlation", so3.rotation_from_correlation_plain)
+    want = pushed()
+    torch.cuda.synchronize()
+    assert so3.WAHBA.launches - before == 2
+    assert got.shape == want.shape == (17, 3, 3)
+    assert torch.allclose(got, want, atol=1e-5, rtol=0)
 
 
 def test_tracked_streaming_render_on_card_matches_cpu(cuda, tmp_path):

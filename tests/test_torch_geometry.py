@@ -79,6 +79,20 @@ def test_rotation_from_correlation_matches_jax():
     np.testing.assert_allclose(got, want, atol=ROT_ATOL)
 
 
+@pytest.mark.parametrize("lead", [(16,), (1,), (2, 5), (0,)])
+def test_rotation_from_correlation_on_the_cpu_is_its_plain_twin(lead):
+    """On a CPU tensor the solve launches no kernel and returns the plain
+    twin's values exactly; the kernel is held to the twin on the card
+    (``tests/test_torch_cuda.py``)."""
+    B = torch.from_numpy(np.random.default_rng(sum(lead)).normal(
+        size=(*lead, 3, 3)).astype(np.float32)) * 50
+    before = tso3.WAHBA.launches
+    got = tso3.rotation_from_correlation(B)
+    assert tso3.WAHBA.launches == before
+    assert got.shape == B.shape
+    assert torch.equal(got, tso3.rotation_from_correlation_plain(B))
+
+
 def test_from_euler_matches_jax():
     got = tso3.from_euler(0.1, -0.2, 0.3).numpy()
     want = np.asarray(jso3.from_euler(0.1, -0.2, 0.3))

@@ -340,6 +340,8 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         warp_kernel.warp_planes_f32(torch.empty((2, 24, 32), device=meta), torch.eye(3),
                                     get_output_camera(in_cam), in_cam, (8, 8))
+    with pytest.raises(ValueError, match="no kernel"):
+        tso3.rotation_from_correlation(torch.empty((2, 3, 3), device=meta))
     plane = torch.empty((48, 64), dtype=torch.uint8, device=meta)
     with pytest.raises(ValueError, match="no kernel"):
         warp_kernel.warp_yuv(plane, plane[:24, :32], plane[:24, :32], torch.eye(3),

@@ -4,7 +4,8 @@ Port of ``video_annotator_tpu/so3.py``: exp/log maps, hat/vee, Shepperd
 quaternions, the one-step Newton-Schulz re-orthonormalization, the polar
 projection and the fixed-iteration Davenport q-method used by RANSAC's
 refinement. Every function takes float32 tensors with arbitrary leading
-batch dimensions and runs on whatever device its inputs live on.
+batch dimensions and runs on whatever device its inputs live on; the
+q-method runs as one CUDA kernel on a CUDA tensor (``csrc/wahba.cu``).
 
 Small 3x3 products are written as explicit sums of elementwise products
 (``matmul``) rather than ``torch.matmul``: the results are then the same
@@ -13,11 +14,21 @@ full-float32 arithmetic on every device, independent of any TF32 setting.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
+from video_annotator_tpu_torch.ops import cuda_lib
+
 _EPS = 1e-8
+
+WAHBA = cuda_lib.CudaKernel(
+    "wahba", "vat_wahba",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int],
+    source="video_annotator_tpu_torch/csrc/wahba.cu",
+    replaces="video_annotator_tpu/so3.py:174",  # plain XLA's power loop; no Pallas kernel
+)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -141,11 +152,29 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
 
 
 def rotation_from_correlation(B: torch.Tensor, iters: int = 120) -> torch.Tensor:
-    """Proper rotation R maximizing tr(R B^T) (Wahba's problem).
+    """Proper rotation R maximizing tr(R B^T) (Wahba's problem) for a
+    (..., 3, 3) correlation: :func:`rotation_from_correlation_plain` on a
+    CPU tensor, one launch of ``csrc/wahba.cu`` (:data:`WAHBA`) on a
+    float32 CUDA one (none for an empty batch)."""
+    if B.device.type == "cpu":
+        return rotation_from_correlation_plain(B, iters)
+    cuda_lib.check_cuda(B)
+    if B.dtype != torch.float32 or B.shape[-2:] != (3, 3):
+        raise ValueError(f"the Wahba kernel takes (..., 3, 3) float32, got "
+                         f"{tuple(B.shape)} {B.dtype}")
+    B = B.contiguous()
+    R = torch.empty_like(B)
+    cuda_lib.check_operands(B, R)
+    if R.numel():
+        WAHBA.launch(cuda_lib.ptr(B), cuda_lib.ptr(R), R.numel() // 9, iters)
+    return R
 
-    Davenport q-method: the dominant eigenvector of the 4x4 K matrix by a
-    fixed-iteration shifted power method from two starts (all-ones and the
-    one-hot Shepperd pivot), keeping the higher Rayleigh quotient."""
+
+def rotation_from_correlation_plain(B: torch.Tensor, iters: int = 120) -> torch.Tensor:
+    """Plain twin of the ``wahba`` kernel: the Davenport q-method, the
+    dominant eigenvector of the 4x4 K matrix by a fixed-iteration shifted
+    power method from two starts (all-ones and the one-hot Shepperd
+    pivot), keeping the higher Rayleigh quotient."""
     b00, b01, b02 = B[..., 0, 0], B[..., 0, 1], B[..., 0, 2]
     b10, b11, b12 = B[..., 1, 0], B[..., 1, 1], B[..., 1, 2]
     b20, b21, b22 = B[..., 2, 0], B[..., 2, 1], B[..., 2, 2]
